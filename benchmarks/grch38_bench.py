@@ -1,16 +1,16 @@
-"""Full-GRCh38-scale end-to-end run on one chip (VERDICT r4 #5).
+"""Full-GRCh38-scale end-to-end run on one device.
 
 The reference's production target is GRCh38 + ERR194147 (reference:
 download.sh:3-13, startbefehl.txt:1-3; 6-GPU SLURM shape scriptJob:10-17).
-This benchmark runs the SAME scale on ONE TPU chip: a faithful synthetic
+This benchmark runs the SAME scale on ONE device: a faithful synthetic
 GRCh38 — all 24 nuclear chromosomes at their true GRCh38 lengths, chrM
 (16.6 kb) and a handful of unplaced-contig-sized sequences to stress the
 small-contig window/segment math — with >=1M planted BS reads, mapped
 end-to-end (coarse -> STEP-2 SAM -> STEP-3 VCF) and scored for
 concordance against the planted truth.
 
-One 16 GB chip cannot hold the ~27 GB of region indexes at once, so the
-regions STREAM through the device sequentially: each region's window
+The regions STREAM through the device sequentially, so the device never
+holds more than one region's index: each region's window
 index is built on-chip, all reads coarse-map against it, the per-read
 (hamming, global-window) argmin merges into the running best
 (region_key_payload — the same deterministic merge the resident
@@ -104,7 +104,7 @@ def plant_reads(rng, genome, n_reads, read_len):
 def pad_index_like(index, u_max, v_max):
     """Pad one region's CSR/cuckoo arrays so all regions share ONE jit
     executable (the index arrays are jit arguments; different shapes
-    would recompile per region, ~30-100 s each on this transport)."""
+    would recompile per region)."""
     import jax.numpy as jnp
     f, u = index.keys.shape
     du = u_max - u
@@ -198,9 +198,9 @@ def main():
     for ri, segs in enumerate(regions):
         t0 = time.perf_counter()
         # binary-search probe: the cuckoo direct-probe tables cost ~2.5x
-        # the CSR index in HBM, and region i's buffers are freed lazily
-        # while region i+1 builds — with cuckoo on, the transient
-        # co-residency OOMed a 16 GB chip at region 7 of 12 (observed)
+        # the CSR index in device memory, and region i's buffers are
+        # freed lazily while region i+1 builds, so with cuckoo on the
+        # transient co-residency can exceed a small device's memory
         mapper = CoarseMapper(genome, opts, segments=segs,
                               build_direct_probe=False)
         # pad to the largest index seen so every region hits the same
@@ -238,8 +238,7 @@ def main():
             f"build {dt_b:.1f}s map {dt_m:.1f}s mapped {n_mapped_r}")
         # the jitted methods' cache holds `self` (a static arg), so the
         # mapper OBJECT outlives `del` — null the big device references
-        # so the arrays free even while the husk stays cached (without
-        # this, 12 regions OOM a 16 GB chip around region 9-10: observed)
+        # so the arrays free even while the husk stays cached (ROADMAP D5)
         mapper.index = None
         mapper.table = None
         mapper._genome_s2 = None

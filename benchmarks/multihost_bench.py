@@ -1,25 +1,22 @@
-"""Multi-host region-sharded mapping benchmark + launcher.
+"""Multi-process region-sharded mapping: a CPU-only topology rehearsal.
 
-The TPU-native replacement for the reference's cluster launch story (its
-SLURM `scriptJob` runs one process driving 6 GPUs over CUDA P2P; here each
-HOST is a jax.distributed process and regions span the global device set,
-merged with the region-mesh collective in parallel/multihost.py).
+Rehearses the multi-host merge (parallel/multihost.py: regions span the
+global device set of several jax.distributed processes, merged with the
+region-mesh collective) on virtual CPU devices.  It says nothing about
+speed.  On GPUs one process drives all local cards — as the reference's
+SLURM `scriptJob` runs one process driving 6 GPUs — through run_pipeline
+with --mesh or --regions; never start one process per card.
 
 Modes:
-  launcher (default):    spawns --nprocs local worker processes with a
+  launcher (default):    spawns --nprocs local CPU worker processes with a
                          localhost coordinator and aggregates their JSON.
                              python benchmarks/multihost_bench.py --nprocs 2
-  worker (one per host): set --worker; topology from flags or from SLURM
-                         (SLURM_PROCID/SLURM_NTASKS).  On a pod slice run
-                         one worker per host with the coordinator on host 0:
-                             srun python benchmarks/multihost_bench.py \
-                                 --worker --coordinator "$MASTER_ADDR:8476"
+  worker:                set --worker; topology from flags or from SLURM
+                         (SLURM_PROCID/SLURM_NTASKS).
 
 Each worker maps the full replicated read set against its local regions
 (one region per addressable device), merges across processes, and checks
-planted-read positions on the merged results.  On virtual CPU devices the
-reads/s numbers exercise topology, not hardware — real scaling numbers
-need one worker per real TPU host.
+planted-read positions on the merged results.
 """
 
 import argparse
@@ -40,13 +37,10 @@ def parse_args():
     p.add_argument("--nprocs", type=int, default=None)
     p.add_argument("--coordinator", default=None)
     p.add_argument("--devices-per-proc", type=int, default=2,
-                   help="virtual CPU devices per process (ignored on TPU)")
+                   help="virtual CPU devices per process")
     p.add_argument("--genome-mbp", type=float, default=2.0)
     p.add_argument("--reads", type=int, default=4096)
     p.add_argument("--batchsize", type=int, default=512)
-    p.add_argument("--cpu", action="store_true", default=True,
-                   help="force the CPU backend (default; TPU pods should "
-                        "drop this and rely on the native topology)")
     return p.parse_args()
 
 
@@ -95,14 +89,13 @@ def worker(args):
         os.environ.get("SLURM_PROCID", 0))
     nprocs = args.nprocs or int(os.environ.get("SLURM_NTASKS", 1))
     flags = os.environ.get("XLA_FLAGS", "")
-    if args.cpu and "xla_force_host_platform_device_count" not in flags:
+    if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
             flags + f" --xla_force_host_platform_device_count="
             f"{args.devices_per_proc}").strip()
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     # initialize the distributed runtime BEFORE any import that touches a

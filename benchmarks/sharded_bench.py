@@ -1,4 +1,4 @@
-"""Sharded-vs-single per-chip throughput (VERDICT r1 weak #3).
+"""Sharded-vs-single per-device throughput.
 
 Runs the same 3N workload through the single-chip inverted engine and
 through ShardedCoarseMapper on a 1x1 mesh of the SAME chip, so the

@@ -112,8 +112,8 @@ def main():
 
     # stage 3: vote
     def vote_fn(c):
-        return mi.vote_candidates_fnc_auto(c, opts.min_table_hits,
-                                           opts.candidates_per_read_cap)
+        return mi.vote_candidates(c.transpose(1, 0, 2), opts.min_table_hits,
+                                  opts.candidates_per_read_cap)
     vote_j = jax.jit(vote_fn)
     t_vote = timeit(vote_j, (cand,))
 

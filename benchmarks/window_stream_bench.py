@@ -1,8 +1,7 @@
-"""Window-stream (reference-orientation) throughput on the chip.
+"""Window-stream (reference-orientation) throughput on the device.
 
-Round-3 verdict item #8: the mechanism (device-side window-base gather,
-window_stream.py:131-141) was fixed in round 3; this records the number.
-The reference's own architecture indexes the READS and streams genome
+Times pipeline/window_stream.py (device-side window-base gather).  The
+reference's own architecture indexes the READS and streams genome
 windows through the index (reference: src/gpu/main_gpu.cu:484-514).
 
 Usage: python benchmarks/window_stream_bench.py [genome_mbp] [n_reads]
@@ -54,8 +53,8 @@ def main():
         min_table_hits=4, batchsize=4096, max_hamming_percent=0.05,
         probe_cap=16, candidates_per_read_cap=8, max_read_length=128,
         three_n_seeding=True,
-        # round-5: pair compaction + two-tier/head-compacted probe in the
-        # window orientation (bit-identical; counters asserted below)
+        # pair compaction + two-tier/head-compacted probe in the window
+        # orientation (bit-identical; counters asserted below)
         shd_pairs_per_read_budget=4, probe_tail_budget_per_read=4,
         probe_head_budget_per_read=18)
 

@@ -1,8 +1,8 @@
 """Command-line interface mirroring the reference's cxxopts flags.
 
 Reference: src/options.cpp:263-334 (addOptions).  Flag names are kept
-compatible where sensible; TPU-specific capacity knobs are added under their
-own names.  Entry point: `python -m hashreadmapper_tpu ...`.
+compatible where sensible; the fixed-capacity knobs of the device path are
+added under their own names.  Entry point: `python -m hashreadmapper_tpu ...`.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from .config import MapperType, ProgramOptions, SequencePairType, \
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="hashreadmapper-tpu",
-        description="TPU-native bisulfite (3N) hash read mapper")
+        description="bisulfite (3N) hash read mapper on the GPU")
     p.add_argument("-i", "--inputfiles", nargs="+", default=[],
                    help="read files (FASTA/FASTQ, optionally .gz)")
     p.add_argument("--genomefile", default="genome.fasta")
@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "jax-managed here, accepted for CLI parity)")
     p.add_argument("--warpcore", type=int, default=1,
                    help="reference hash-table backend toggle; accepted "
-                        "for CLI parity (the TPU index has one backend)")
+                        "for CLI parity (the device index has one backend)")
     p.add_argument("--memHashtables", default="0",
                    help="memory limit for hash tables (K/M/G suffixes)")
     p.add_argument("--memTotal", default="0")
@@ -73,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PBAT/undirectional BS protocol: also probe and "
                         "align the complementary strand spaces (requires "
                         "--threeN)")
-    # TPU capacity knobs
+    # device capacity knobs
     p.add_argument("--probeCap", type=int, default=64)
     p.add_argument("--candidatesPerRead", type=int, default=32)
     p.add_argument("--shdPairBudget", type=int, default=0,
@@ -152,6 +152,8 @@ def options_from_args(argv: Optional[List[str]] = None) -> ProgramOptions:
 
 def main(argv: Optional[List[str]] = None) -> int:
     opts = options_from_args(argv)
+    from .utils.jaxcache import configure_compile_cache
+    configure_compile_cache()
     from .pipeline.driver import run_pipeline
     run_pipeline(opts)
     return 0

@@ -83,6 +83,15 @@ def revcomp_bases(bases: Sequence[int]) -> List[int]:
     return [3 - b for b in reversed(bases)]
 
 
+def collapse_bases(bases: Sequence[int], space: str) -> List[int]:
+    """Bisulfite collapse of base codes: 'ct' C->T, 'ga' G->A, '' none."""
+    if space == "ct":
+        return [3 if b == 1 else b for b in bases]
+    if space == "ga":
+        return [0 if b == 2 else b for b in bases]
+    return list(bases)
+
+
 def three_n_c_to_t_str(seq: str) -> str:
     """Reference NucleoideConverer (mappinghandler.cu:163-179): C -> T."""
     return seq.replace("C", "T")
@@ -120,15 +129,29 @@ def canonical_kmers(bases: Sequence[int], k: int) -> List[int]:
     return out
 
 
+def forward_kmers(bases: Sequence[int], k: int) -> List[int]:
+    """Every forward k-mer as a 2k-bit int (the 3N seeding mode, whose
+    collapsed spaces break reverse-complement symmetry)."""
+    out = []
+    for p in range(len(bases) - k + 1):
+        fwd = 0
+        for i in range(k):
+            fwd = (fwd << 2) | bases[p + i]
+        out.append(fwd)
+    return out
+
+
 def minhash_signature(bases: Sequence[int], k: int,
-                      hash_ids: Sequence[int]) -> Optional[List[int]]:
+                      hash_ids: Sequence[int],
+                      canonical: bool = True) -> Optional[List[int]]:
     """Per-hash-function minimum of murmur64(kmer + id), masked to 2k bits.
 
     Returns None when len < k (reference: gpusequencehasher.cuh:162-166).
+    canonical=False hashes forward k-mers only.
     """
     if len(bases) < k:
         return None
-    kmers = canonical_kmers(bases, k)
+    kmers = (canonical_kmers if canonical else forward_kmers)(bases, k)
     mask = (1 << (2 * k)) - 1
     sig = []
     for f in hash_ids:
@@ -201,6 +224,30 @@ def query_candidates(index: MinhashIndex, sig: Optional[Sequence[int]],
     else:
         keep = list(hits.keys())
     return sorted(keep)
+
+
+def vote_rows(cand, min_table_hits: int, cap: int):
+    """The device vote's contract over a [N, F, C] uint32 candidate array
+    (0xFFFFFFFF = empty slot): per read, the distinct ids seen at least
+    min_table_hits times, ascending, first `cap` of them with their hit
+    counts, and the number of such ids before the cap.  Returns numpy
+    (ids [N, cap] uint32, counts [N, cap] int32, num_kept [N] int32)."""
+    import numpy as np
+
+    sent = np.uint32(0xFFFFFFFF)
+    n = cand.shape[0]
+    ids = np.full((n, cap), sent, np.uint32)
+    cnt = np.zeros((n, cap), np.int32)
+    num_kept = np.zeros(n, np.int32)
+    for i in range(n):
+        v = cand[i].reshape(-1)
+        u, c = np.unique(v[v != sent], return_counts=True)
+        keep = c >= min_table_hits
+        u, c = u[keep][:cap], c[keep][:cap]
+        num_kept[i] = int(keep.sum())
+        ids[i, :len(u)] = u
+        cnt[i, :len(u)] = c
+    return ids, cnt, num_kept
 
 
 # ---------------------------------------------------------------------------
@@ -276,13 +323,17 @@ class ShdResult:
 
 
 def shifted_hamming_distance(anchor: Sequence[int], candidate: Sequence[int],
-                             max_hamming_percent: float) -> ShdResult:
+                             max_hamming_percent: float,
+                             spaces: Tuple[str, str] = ("", "")
+                             ) -> ShdResult:
     """Best full-overlap alignment of candidate (fwd and RC) inside anchor.
 
     Tie rules re-derived from the kernel's iteration order: orientation 0
     (forward) before 1 (RC), shifts ascending, strictly-smaller score wins
     (hammingdistancekernels.cu:196-256).  Candidate longer than anchor =>
-    (shift 0, score len(candidate), None) (":257-262").
+    (shift 0, score len(candidate), None) (":257-262").  spaces: the
+    collapse space of each orientation (3N: ('ct', 'ga') compares
+    CT(candidate) with CT(anchor) and GA(RC(candidate)) with GA(anchor)).
     """
     cand_len = len(candidate)
     anchor_len = len(anchor)
@@ -294,9 +345,11 @@ def shifted_hamming_distance(anchor: Sequence[int], candidate: Sequence[int],
     best_orientation = -1
     for orientation, cand in ((0, list(candidate)),
                               (1, [3 - b for b in reversed(candidate)])):
+        cand = collapse_bases(cand, spaces[orientation])
+        anc = collapse_bases(anchor, spaces[orientation])
         for shift in range(anchor_len - cand_len + 1):
             score = sum(1 for i in range(cand_len)
-                        if anchor[shift + i] != cand[i])
+                        if anc[shift + i] != cand[i])
             if best_score is None or score < best_score:
                 best_score = score
                 best_shift = shift

@@ -8,7 +8,7 @@ build that CSR directly with sort/group-by (the GroupByKey design,
 include/groupbykey.hpp:68-158) and probe it on device with a vectorized
 binary search + capped gather — no probing loops, fully static shapes.
 
-The TPU engine runs in the *genome-index* orientation (BASELINE.json north
+The engine runs in the *genome-index* orientation (BASELINE.json north
 star): the index maps signature -> window ids and reads stream through as
 queries.  Candidate sets are identical to the reference's inverted
 orientation because signature equality is symmetric; the reference's
@@ -78,7 +78,7 @@ class CsrIndex:
     def build_cuckoo(self) -> bool:
         """Host-built 2-choice cuckoo slot table over the CSR keys.
 
-        The TPU-shaped analog of the reference's warpcore open addressing
+        The static-shape analog of the reference's warpcore open addressing
         (gpuhashtable.cuh:726-833): slots are assigned once on the host
         (native/cuckoo.cpp — kicking is sequential) and queried with three
         fixed-shape vector gathers.  The payload packs (value offset << 10
@@ -392,7 +392,7 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
             accounting (reference semantics have no cap here; parity tests
             must choose probe_cap >= max count).
     With fnc_layout=True the probe's NATIVE layouts come back untransposed
-    (cand [F, N, C], counts [F, N]) — what vote_candidates_fnc_auto wants.
+    (cand [F, N, C], counts [F, N]).
 
     tail_budget > 0 enables the two-tier value gather: measured probe hits
     average ~1.2 values, so the head gather fetches only 4 slots per
@@ -403,8 +403,8 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
     Adds (tail_drops, head_drops) to the returns.
 
     head_budget > 0 (requires the two-tier mode) additionally compacts the
-    FOUND probes before the head gather (misses — ~57% of probes on the
-    flagship shape — otherwise pay the same 18 ns/element); bit-identical
+    FOUND probes before the head gather (misses otherwise pay the same
+    gather as hits); bit-identical
     while head_drops is 0.  Probes compacted out past head_budget lose all
     their values, so callers must assert/report head_drops like the other
     budget counters.
@@ -479,9 +479,9 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
 
     head_drops = jnp.int32(0)
     if head_budget > 0 and two_tier:
-        # found-compacted head gather: only ~43% of probes hit on the
-        # flagship shape (measured), but the dense head gather below pays
-        # 18 ns/element for every (f, n) including misses.  Compact the
+        # found-compacted head gather: fewer than half of the probes hit
+        # on the bench shape, but the dense head gather below gathers
+        # for every (f, n) including misses.  Compact the
         # found probes (<= head_budget of them, same machinery as the
         # tail tier) and gather c1 slots for those only — bit-identical
         # while head_drops stays 0 (probes compacted out past the budget
@@ -557,34 +557,6 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
     if fnc_layout:
         return cand, counts
     return cand.transpose(1, 0, 2), counts.T
-
-
-def vote_uses_pallas(f: int, n: int, c: int) -> bool:
-    """True when the fused Pallas vote kernel handles this [F, N, C] probe
-    shape on the current backend.  Shared by vote_candidates_fnc_auto and
-    the engines' run stats (an XLA fallback on TPU is a silent ~17x vote
-    slowdown — surfaced as vote_kernel_fallback, PERF.md gap #3).
-
-    Kernel stage temporaries round-trip VMEM scratch, so the footprint is a
-    few [m, 128] buffers; m=2048 (the CLI-default probe_cap 64 x 32 tables)
-    measured fine, 17x the XLA merge tree there."""
-    f2c = (1 << max(f - 1, 0).bit_length()) * c
-    return (jax.default_backend() == "tpu" and n % 128 == 0 and c > 0
-            and c & (c - 1) == 0 and f2c <= 2048)
-
-
-def vote_candidates_fnc_auto(cand_fnc: jnp.ndarray, min_table_hits: int,
-                             out_cap: int):
-    """vote_candidates over [F, N, C] probe output: fused Pallas kernel on
-    TPU (ops/vote_pallas.py, ~5x the XLA merge tree), bit-identical XLA
-    fallback elsewhere / at shapes the kernel does not take."""
-    f, n, c = cand_fnc.shape
-    if vote_uses_pallas(f, n, c):
-        from ..ops import vote_pallas
-        return vote_pallas.vote_candidates_fnc(
-            cand_fnc, min_table_hits, out_cap)
-    return vote_candidates(cand_fnc.transpose(1, 0, 2), min_table_hits,
-                           out_cap)
 
 
 # ---------------------------------------------------------------------------

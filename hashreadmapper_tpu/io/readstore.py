@@ -1,6 +1,6 @@
 """Packed read storage with binary save/load.
 
-TPU-native counterpart of the reference's ChunkedReadStorage
+Device-side counterpart of the reference's ChunkedReadStorage
 (reference: include/chunkedreadstorage.hpp:31, chunkedreadstorageconstruction.hpp:31):
 reads are 2-bit packed row-major into one pitched uint32 matrix (the shape the
 device consumes directly), with an int32 length vector and an ambiguous-read

@@ -4,12 +4,11 @@ Device reformulation of the banded CIGAR pass that follows the SSW score
 passes (reference: src/ssw.c:550-790 banded_sw driven from
 src/gpu/mappinghandler.cu:560-595; host oracle align/sw.py::_banded_cigar,
 golden-verified, re-derived natively in native/swalign.cpp::banded_cigar).
-This was the last remaining host DP: ~50% of pairs are not covered by the
-all-M diag certificate (ops/swdev.py::_diag_fastpath_flag) and paid ~18
-ns/cell on the host.  Here the band fill runs as a lane-parallel kernel on
-the TPU and the traceback walk consumes whole CIGAR RUNS per step, so the
-host only merges the returned run-length entries and does the =/X rewrite
-(native/swalign.cpp::finish_alignment).
+It covers the pairs the all-M diag certificate
+(ops/swdev.py::_diag_fastpath_flag) does not.  The band fill runs on the
+device over all pairs at once and the traceback walk consumes whole CIGAR
+RUNS per step, so the host only merges the returned run-length entries and
+does the =/X rewrite (native/swalign.cpp::finish_alignment).
 
 Reformulation notes (per DP row i over ref lanes j, band
 [beg, endj] = [max(0, i-bw), min(r-1, i+bw)]):
@@ -36,9 +35,9 @@ Reformulation notes (per DP row i over ref lanes j, band
     failure).  The walk then emits one (op, len) entry per gather — a few
     entries per pair instead of one step per CIGAR base.
   * band doubling (double while best < score1 and 2*bw <= max_len) runs
-    as a FIXED-length scan of passes (a while_loop's any(~done) cond
-    costs more than a full extra pass on this backend); done pairs keep
-    their bw so extra passes recompute final results and change nothing.
+    as a FIXED-length scan of passes, with no data-dependent loop exit;
+    done pairs keep their bw so extra passes recompute final results and
+    change nothing.
 
 Monotonicity argument used for the doubling loop (why per-pass best at
 the final band equals the oracle's best accumulated across passes):
@@ -57,8 +56,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 GAP_OPEN = 3
 GAP_EXTEND = 1
@@ -69,17 +66,16 @@ _BIG = np.int32(0x3FFFFFFF)  # np not jnp: module-level jnp constants
 # initialize the backend at import time (see ops/swdev.py)
 _POISON = np.int32(-4096)    # run crossed the band -> oracle fails
 
-_BP = 128       # pairs per Pallas program (the lane axis)
 N_ENTRIES = 64  # walk entries per pair; overflow -> host banded_cigar
 # walk result codes (ops int16: dh-op in bits 0..1, run length in 2..14)
 OP_M, OP_I, OP_D = 1, 2, 3
 
 
-def _shift_sub_xla(codes_t, begin, size):
+def _shift_sub(codes_t, begin, size):
     """codes_t [L, P] -> sub[t] = codes[begin + t] (4 past the end).
 
-    Barrel shift by `begin` via log2 select+roll (per-pair XLA gathers
-    cost ~18 ns/element on this backend; rolls are cheap)."""
+    Barrel shift by `begin` via log2 select+roll: log2(L) whole-array
+    selects instead of a per-element gather."""
     L, P = codes_t.shape
     pad = jnp.full((size, P), 4, jnp.int32)
     x = jnp.concatenate([codes_t, pad], axis=0)
@@ -94,58 +90,10 @@ def _shift_sub_xla(codes_t, begin, size):
     return x[:size]
 
 
-def _shift_kernel(x_ref, sh_ref, o_ref, s_ref, *, size: int):
-    """In-VMEM barrel shift: o[t, p] = x[t + sh[p], p], 4 past the end.
-
-    The XLA formulation above materializes the full [L+size, P] array to
-    HBM on every one of its log2 steps (~7 ms/8192-pair batch measured —
-    the single largest fixed cost of the fused traceback); here the
-    steps round-trip a VMEM scratch ref (the vote_pallas liveness idiom)
-    and HBM sees one read + one write."""
-    L = x_ref.shape[0]
-    n = L + size
-    sh = sh_ref[...]                                   # [1, BP] int32
-    s_ref[0:L, :] = x_ref[...]
-    s_ref[L:n, :] = jnp.full((size, s_ref.shape[1]), 4, jnp.int32)
-    for b in range(max(1, (n - 1).bit_length())):
-        step = 1 << b
-        if step >= n:
-            break
-        x = s_ref[...]
-        shifted = jnp.concatenate(
-            [x[step:], jnp.full((step, x.shape[1]), 4, jnp.int32)], axis=0)
-        s_ref[...] = jnp.where((sh & step) != 0, shifted, x)
-    o_ref[...] = s_ref[0:size, :]
-
-
-def _shift_sub_pallas(codes_t, begin, size):
-    L, P = codes_t.shape
-    out = pl.pallas_call(
-        partial(_shift_kernel, size=size),
-        grid=(P // _BP,),
-        in_specs=[pl.BlockSpec((L, _BP), lambda g: (0, g)),
-                  pl.BlockSpec((1, _BP), lambda g: (0, g))],
-        out_specs=pl.BlockSpec((size, _BP), lambda g: (0, g)),
-        out_shape=jax.ShapeDtypeStruct((size, P), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((L + size, _BP), jnp.int32)],
-    )(codes_t.astype(jnp.int32),
-      begin.astype(jnp.int32).reshape(1, P))
-    return out
-
-
-def _shift_sub(codes_t, begin, size):
-    """Dispatch: Pallas on TPU blocks of 128, XLA elsewhere.  Both are
-    exact (fuzzed against each other in tests/test_bandtb.py)."""
-    P = codes_t.shape[1]
-    if jax.default_backend() == "tpu" and P % _BP == 0:
-        return _shift_sub_pallas(codes_t, begin, size)
-    return _shift_sub_xla(codes_t, begin, size)
-
-
 def _row_core(h_up, e_up, d2_up, j_up, read_i, sub_ref, s_valid, i, m, r,
               bw, j_l, sdj, n_lanes: int, emit_dirs: bool = True):
-    """Shared single-row recurrence (both the XLA scan and the Pallas
-    kernel call this with their own shift primitive `sdj`).
+    """Single-row recurrence of the banded fill; `sdj` is the shift
+    primitive along the ref-position axis.
 
     h_up/e_up carries are masked to 0 outside the previous row's band;
     d2_up to 0; j_up holds _POISON outside it (and 0 before row 0, so a
@@ -229,21 +177,14 @@ def _row_core(h_up, e_up, d2_up, j_up, read_i, sub_ref, s_valid, i, m, r,
             packed, ok)
 
 
-def _sdj_rows(x, k, fill):
-    """Sublane/row shift: out[j] = x[j-k] (head filled)."""
-    return jnp.concatenate(
-        [jnp.full((k,) + x.shape[1:], fill, x.dtype), x[:-k]], axis=0)
-
-
 def _sdj_lanes(x, k, fill):
-    """Lane-axis (axis 1) shift for the XLA [P, NL] layout."""
+    """Ref-position (axis 1) shift of the [P, NL] layout."""
     return jnp.concatenate(
         [jnp.full(x.shape[:1] + (k,), fill, x.dtype), x[:, :-k]], axis=1)
 
 
 def _fill_pass(read_t, sub_ref, m, r, bw, m_max: int, emit_dirs: bool):
-    """One banded DP pass at band width bw — XLA scan formulation
-    (CPU / interpret path; the TPU path is the Pallas kernel below).
+    """One banded DP pass at band width bw (a scan over read rows).
 
     read_t [m_max, P] subregion read codes, sub_ref [P, NL] subregion ref
     codes.  Returns (best [P], packed [m_max, P, NL] int16 or None)."""
@@ -270,155 +211,16 @@ def _fill_pass(read_t, sub_ref, m, r, bw, m_max: int, emit_dirs: bool):
     return best, (dirs if emit_dirs else None)
 
 
-def _fill_kernel(read_ref, ref_ref, m_ref, r_ref, bw_ref, done_ref,
-                 *refs, m_max: int, emit_dirs: bool):
-    """One banded DP pass for a block of _BP pairs; ref positions j ride
-    the sublane axis (shift-friendly), pairs ride the 128 lanes.  The
-    whole row loop lives in-kernel with the carries in VMEM scratch.
-    Blocks whose pairs are all done skip everything (their best output
-    is left unwritten — the caller's done mask gates its use)."""
-    if emit_dirs:
-        dirs_ref, best_ref = refs[0], refs[1]
-        scratch = refs[2:]
-    else:
-        dirs_ref, best_ref = None, refs[0]
-        scratch = refs[1:]
-    h_ref, e_ref, d2_ref, j_ref = scratch
-    NL = ref_ref.shape[0]
-    m = m_ref[...]                                        # [1, BP]
-    r = r_ref[...]
-    bw = bw_ref[...]
-
-    @pl.when(jnp.any(done_ref[...] == 0))
-    def _():
-        ref = ref_ref[...]                                # [NL, BP]
-        j_l = jax.lax.broadcasted_iota(jnp.int32, (NL, 1), 0)
-        s_valid = ref < 4
-        h_ref[...] = jnp.zeros_like(h_ref)
-        e_ref[...] = jnp.zeros_like(e_ref)
-        d2_ref[...] = jnp.zeros_like(d2_ref)
-        j_ref[...] = jnp.zeros_like(j_ref)
-
-        def row(i, best):
-            read_i = read_ref[pl.ds(i, 1), :]             # [1, BP]
-            h, e, d2, jj, packed, ok = _row_core(
-                h_ref[...], e_ref[...], d2_ref[...], j_ref[...],
-                read_i, ref, s_valid, i, m, r, bw, j_l, _sdj_rows, NL,
-                emit_dirs)
-            best = jnp.maximum(
-                best, jnp.max(jnp.where(ok, h, 0), axis=0, keepdims=True))
-            h_ref[...] = h
-            e_ref[...] = e
-            if emit_dirs:
-                d2_ref[...] = d2
-                j_ref[...] = jj
-                dirs_ref[pl.ds(i, 1), :, :] = packed[None]
-            return best
-
-        # rows past the block's longest subregion write nothing a walk
-        # can reach (i only decreases from m-1); stop the loop there
-        best = jax.lax.fori_loop(
-            0, jnp.minimum(jnp.max(m), m_max), row,
-            jnp.zeros((1, ref.shape[1]), jnp.int32))
-        best_ref[...] = best
-        if emit_dirs:
-            # rows >= the block's longest subregion stay zeroed so a
-            # misdirected gather reads "out of band" (the buffer is fresh
-            # every pass; zero = the oracle's failure sentinel)
-            @pl.when(jnp.max(m) < m_max)
-            def _():
-                z = jnp.zeros((1,) + dirs_ref.shape[1:], jnp.int16)
-
-                def clear(i, c):
-                    dirs_ref[pl.ds(i, 1), :, :] = z
-                    return c
-
-                jax.lax.fori_loop(jnp.max(m), m_max, clear, 0)
-
-
-def _fill_pallas(read_t, ref_t, m, r, bw, done, m_max: int,
-                 emit_dirs: bool):
-    """Pallas dispatch of one banded pass (TPU path).  read_t [m_max, P],
-    ref_t [NL, P], P a multiple of _BP.  Returns (best [1, P],
-    dirs [m_max, NL, P] int16 or None)."""
-    NL, P = ref_t.shape
-    assert P % _BP == 0
-    row1 = lambda a: a.astype(jnp.int32).reshape(1, P)
-    blk = lambda: pl.BlockSpec((1, _BP), lambda g: (0, g))
-    out_specs = [blk()]
-    out_shape = [jax.ShapeDtypeStruct((1, P), jnp.int32)]
-    if emit_dirs:
-        out_specs = [pl.BlockSpec((m_max, NL, _BP), lambda g: (0, 0, g))] \
-            + out_specs
-        out_shape = [jax.ShapeDtypeStruct((m_max, NL, P), jnp.int16)] \
-            + out_shape
-    out = pl.pallas_call(
-        partial(_fill_kernel, m_max=m_max, emit_dirs=emit_dirs),
-        grid=(P // _BP,),
-        in_specs=[
-            pl.BlockSpec((m_max, _BP), lambda g: (0, g)),
-            pl.BlockSpec((NL, _BP), lambda g: (0, g)),
-            blk(), blk(), blk(), blk(),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((NL, _BP), jnp.int32),
-                        pltpu.VMEM((NL, _BP), jnp.int32),
-                        pltpu.VMEM((NL, _BP), jnp.int32),
-                        pltpu.VMEM((NL, _BP), jnp.int32)],
-    )(read_t, ref_t, row1(m), row1(r), row1(bw), row1(done))
-    if emit_dirs:
-        return out[1][0], out[0]
-    return out[0][0], None
-
-
 FUSED_ENTRIES = 48   # fused-mode walk budget (uint8 entries, runs split
 # at 63; p99 of real walks is ~35 entries — overflow -> host banded DP)
 
 
 def fused_traceback_t(pair_q_t, pair_ref_t, s10,
                       n_entries: int = FUSED_ENTRIES):
-    """fused_traceback over TRANSPOSED pair tensors (pair_q_t [LQ, P],
-    pair_ref_t [NL, P] — see fused_traceback below for semantics).  The
-    sort/unsort permutation matmuls run in the transposed layout too, so
-    the whole traceback never materializes a [P, L] relayout."""
-    LQ, P = pair_q_t.shape
-    score1, ref_end, query_end = s10[0], s10[1], s10[2]
-    ref_begin, query_begin = s10[5], s10[6]
-    ovf = s10[8] != 0
-    diag = s10[9] != 0
-    degen = (s10[0] == 0) | (s10[1] < 0)
-    need = ~(diag | ovf | degen)
-    use_pallas = (jax.default_backend() == "tpu" and P % _BP == 0)
-
-    m_sub = query_end - query_begin + 1
-    r_sub = ref_end - ref_begin + 1
-    key = jnp.where(need, -(jnp.abs(r_sub - m_sub) + 1), jnp.int32(1))
-    order = jnp.argsort(key)
-    iota_p = jnp.arange(P, dtype=jnp.int32)
-    oh = (order[:, None] == iota_p[None, :])            # [P(sorted), P]
-    ohf_t = oh.T.astype(jnp.bfloat16)                   # [P, P(sorted)]
-    sq_t = (pair_q_t.astype(jnp.bfloat16) @ ohf_t).astype(jnp.int32)
-    sref_t = (pair_ref_t.astype(jnp.bfloat16) @ ohf_t).astype(jnp.int32)
-    take = lambda a: jnp.take(a, order)
-    ents, status, _ = _tb_core_t(
-        sq_t, take(query_begin), take(query_end), sref_t,
-        take(ref_begin), take(ref_end), take(score1), m_max=LQ,
-        n_entries=n_entries, use_pallas=use_pallas, need=take(need),
-        run_cap=63)
-    # unsort (transpose of the permutation)
-    ohf_u = oh.T.astype(jnp.float32)
-    ents_u = (ohf_u @ ents.astype(jnp.float32)).astype(jnp.int32)
-    status_u = (ohf_u @ status.astype(jnp.float32)).astype(jnp.int8)
-    return (ents_u.astype(jnp.uint8),
-            jnp.where(need, status_u, jnp.int8(0)))
-
-
-def fused_traceback(pair_q, pair_ref, s10, n_entries: int = FUSED_ENTRIES):
     """Traced banded traceback for one scored batch — called INSIDE the
-    engine's fused coarse+score jit (engine._map_batch_scored_at_impl), so
-    the pair tensors never leave HBM and no extra dispatch/transfer
-    roundtrips are paid (each D2H costs ~25 ms RTT on this transport).
+    engine's fused coarse+score jit (engine.fused_step2_scores), so the
+    pair tensors never leave device memory.  Transposed pair tensors:
+    pair_q_t [LQ, P], pair_ref_t [NL, P].
 
     s10: swdev.ssw_score_packed's [10, P] int32 rows.  Pairs covered by
     the all-M diag certificate / overflowed / degenerate are masked done
@@ -429,65 +231,32 @@ def fused_traceback(pair_q, pair_ref, s10, n_entries: int = FUSED_ENTRIES):
 
     Returns (ops [P, n_entries] uint8, status [P] int8).
     """
-    P, LQ = pair_q.shape
+    LQ = pair_q_t.shape[0]
     score1, ref_end, query_end = s10[0], s10[1], s10[2]
     ref_begin, query_begin = s10[5], s10[6]
     ovf = s10[8] != 0
     diag = s10[9] != 0
     degen = (s10[0] == 0) | (s10[1] < 0)
     need = ~(diag | ovf | degen)
-    use_pallas = (jax.default_backend() == "tpu" and P % _BP == 0)
-
-    # sort pairs by (need, initial band width desc) so done pairs cluster
-    # into whole _BP blocks (the fill kernel skips all-done blocks; the
-    # natural [query, RC-query] interleaving defeats that) — the device
-    # analog of the old host dispatch's width sort.  Row permutation via
-    # one-hot MXU matmuls (row gathers cost ~18 ns/element here); codes
-    # 0..4 are exact in bf16, walk entries <= 255 exact in f32.
-    m_sub = query_end - query_begin + 1
-    r_sub = ref_end - ref_begin + 1
-    key = jnp.where(need, -(jnp.abs(r_sub - m_sub) + 1), jnp.int32(1))
-    order = jnp.argsort(key)
-    iota_p = jnp.arange(P, dtype=jnp.int32)
-    oh = (order[:, None] == iota_p[None, :])            # [P(sorted), P]
-    ohf = oh.astype(jnp.bfloat16)
-    sq = (ohf @ pair_q.astype(jnp.bfloat16)).astype(jnp.int8)
-    sref = (ohf @ pair_ref.astype(jnp.bfloat16)).astype(jnp.int8)
-    take = lambda a: jnp.take(a, order)
-    ents, status, _ = _tb_core(
-        sq, take(query_begin), take(query_end), sref, take(ref_begin),
-        take(ref_end), take(score1), m_max=LQ, n_entries=n_entries,
-        use_pallas=use_pallas, need=take(need), run_cap=63)
-    # unsort (transpose of the permutation)
-    ohf_t = oh.T.astype(jnp.float32)
-    ents_u = (ohf_t @ ents.astype(jnp.float32)).astype(jnp.int32)
-    status_u = (ohf_t @ status.astype(jnp.float32)).astype(jnp.int8)
-    return (ents_u.astype(jnp.uint8),
-            jnp.where(need, status_u, jnp.int8(0)))
+    ents, status, _ = _tb_core_t(
+        pair_q_t.astype(jnp.int32), query_begin, query_end,
+        pair_ref_t.astype(jnp.int32), ref_begin, ref_end, score1,
+        m_max=LQ, n_entries=n_entries, need=need, run_cap=63)
+    return ents.astype(jnp.uint8), status
 
 
-@partial(jax.jit, static_argnames=("m_max", "n_entries", "use_pallas"))
+@partial(jax.jit, static_argnames=("m_max", "n_entries"))
 def _banded_tb_jit(read_codes, query_begin, query_end, ref_codes,
-                   ref_begin, ref_end, score1, m_max: int, n_entries: int,
-                   use_pallas: bool = False):
-    return _tb_core(read_codes, query_begin, query_end, ref_codes,
-                    ref_begin, ref_end, score1, m_max, n_entries,
-                    use_pallas)
-
-
-def _tb_core(read_codes, query_begin, query_end, ref_codes,
-             ref_begin, ref_end, score1, m_max: int, n_entries: int,
-             use_pallas: bool = False, need=None, run_cap: int = 0):
+                   ref_begin, ref_end, score1, m_max: int, n_entries: int):
     """Row-major entry: transposes once and defers to _tb_core_t."""
     return _tb_core_t(read_codes.astype(jnp.int32).T, query_begin,
                       query_end, ref_codes.astype(jnp.int32).T,
-                      ref_begin, ref_end, score1, m_max, n_entries,
-                      use_pallas, need, run_cap)
+                      ref_begin, ref_end, score1, m_max, n_entries)
 
 
 def _tb_core_t(read_tt, query_begin, query_end, ref_tt,
                ref_begin, ref_end, score1, m_max: int, n_entries: int,
-               use_pallas: bool = False, need=None, run_cap: int = 0):
+               need=None, run_cap: int = 0):
     """Transposed inputs: read_tt [LQ, P], ref_tt [NL, P] int32 — the
     fused path builds pairs in this layout, skipping the relayouts."""
     LQ = read_tt.shape[0]
@@ -500,9 +269,7 @@ def _tb_core_t(read_tt, query_begin, query_end, ref_tt,
     score1 = score1.astype(jnp.int32)
 
     read_t = _shift_sub(read_tt.astype(jnp.int32), qb, m_max)
-    ref_t = _shift_sub(ref_tt.astype(jnp.int32), rb, NL)
-    if not use_pallas:
-        sub_ref = ref_t.T                                    # [P, NL]
+    sub_ref = _shift_sub(ref_tt.astype(jnp.int32), rb, NL).T   # [P, NL]
 
     max_len = jnp.maximum(m, r)
     bw0 = jnp.abs(r - m) + 1
@@ -510,34 +277,18 @@ def _tb_core_t(read_tt, query_begin, query_end, ref_tt,
     # ceil(log2(max_len)) + 1 times before 2*bw > max_len stops it
     n_passes = max(1, (max(m_max, NL) - 1).bit_length() + 1)
     done0 = jnp.zeros((P,), bool) if need is None else ~need
-    dirs_done = (jnp.zeros((P,), jnp.int32) if need is None
-                 else (~need).astype(jnp.int32))
 
-    if use_pallas:
-        def body(c, _):
-            bw, done = c
-            best, _ = _fill_pallas(read_t, ref_t, m, r, bw, done,
-                                   m_max, False)
-            now = (best >= score1) | (2 * bw > max_len)
-            bw = jnp.where(done | now, bw, 2 * bw)
-            return (bw, done | now), None
+    def body(c, _):
+        bw, done = c
+        best, _ = _fill_pass(read_t, sub_ref, m, r, bw, m_max, False)
+        now = (best >= score1) | (2 * bw > max_len)
+        bw = jnp.where(done | now, bw, 2 * bw)
+        return (bw, done | now), None
 
-        (bw_f, _), _ = jax.lax.scan(
-            body, (bw0, done0), None, length=n_passes)
-        _, dirs = _fill_pallas(read_t, ref_t, m, r, bw_f,
-                               dirs_done, m_max, True)
-    else:
-        def body(c, _):
-            bw, done = c
-            best, _ = _fill_pass(read_t, sub_ref, m, r, bw, m_max, False)
-            now = (best >= score1) | (2 * bw > max_len)
-            bw = jnp.where(done | now, bw, 2 * bw)
-            return (bw, done | now), None
-
-        (bw_f, _), _ = jax.lax.scan(
-            body, (bw0, done0), None, length=n_passes)
-        _, dirs = _fill_pass(read_t, sub_ref, m, r, bw_f, m_max, True)
-        dirs = dirs.transpose(0, 2, 1)           # -> [m_max, NL, P]
+    (bw_f, _), _ = jax.lax.scan(
+        body, (bw0, done0), None, length=n_passes)
+    _, dirs = _fill_pass(read_t, sub_ref, m, r, bw_f, m_max, True)
+    dirs = dirs.transpose(0, 2, 1)               # -> [m_max, NL, P]
     # flat [m_max * NL * P] for the walk's 1D gather
     flat = dirs.reshape(-1)
 
@@ -609,14 +360,11 @@ def banded_traceback_dispatch(read_codes, query_begin, query_end,
     """Enqueue without synchronizing (same contract as
     swdev.ssw_score_dispatch): returns device arrays (ops, status)."""
     LQ = int(read_codes.shape[1])
-    P = int(read_codes.shape[0])
-    use_pallas = (jax.default_backend() == "tpu" and P % _BP == 0)
     ops, status, _ = _banded_tb_jit(
         jnp.asarray(read_codes), jnp.asarray(query_begin),
         jnp.asarray(query_end), jnp.asarray(ref_codes),
         jnp.asarray(ref_begin), jnp.asarray(ref_end),
-        jnp.asarray(score1), m_max=LQ, n_entries=N_ENTRIES,
-        use_pallas=use_pallas)
+        jnp.asarray(score1), m_max=LQ, n_entries=N_ENTRIES)
     return ops, status
 
 

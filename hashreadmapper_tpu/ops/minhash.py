@@ -138,29 +138,19 @@ def minhash_signatures(bases: jnp.ndarray, lengths: jnp.ndarray, k: int,
       (sig [N, F] uint32, valid [N] bool).  Invalid rows carry SIG_SENTINEL.
     """
     assert 1 <= k <= 16, "device signatures restricted to k<=16 (uint32)"
-    from . import minhash_pallas
-    if minhash_pallas.can_use(k, bases.shape[0], bases.shape[1] - k + 1):
-        # fused Pallas kernel (in-kernel k-mer build + murmur + min);
-        # bit-identical to the XLA path below, ~10x cheaper on the chip
-        # (the XLA k-mer build's unaligned lane slices were ~90% of the
-        # honest coarse-step budget)
-        min_lo = minhash_pallas.sigs_from_bases(
-            bases, lengths, k, hash_ids,
-            mode="canon" if canonical else "fwd")
+    if canonical:
+        (chi, clo), kvalid = canonical_kmers(bases, lengths, k)
     else:
-        if canonical:
-            (chi, clo), kvalid = canonical_kmers(bases, lengths, k)
-        else:
-            (chi, clo), kvalid = forward_kmers(bases, lengths, k)
+        (chi, clo), kvalid = forward_kmers(bases, lengths, k)
 
-        # hash input = canonical kmer + hash id (u64 add with carry)
-        f = hash_ids.astype(jnp.uint32)[None, :, None]      # [1, F, 1]
-        lo_f = clo[:, None, :] + f                          # [N, F, P]
-        carry = (lo_f < clo[:, None, :]).astype(jnp.uint32)
-        hi_f = chi[:, None, :] + carry
+    # hash input = canonical kmer + hash id (u64 add with carry)
+    f = hash_ids.astype(jnp.uint32)[None, :, None]          # [1, F, 1]
+    lo_f = clo[:, None, :] + f                              # [N, F, P]
+    carry = (lo_f < clo[:, None, :]).astype(jnp.uint32)
+    hi_f = chi[:, None, :] + carry
 
-        hhi, hlo = u64.murmur64((hi_f, lo_f))
-        _, min_lo = _min_u64_masked(hhi, hlo, kvalid[:, None, :], axis=2)
+    hhi, hlo = u64.murmur64((hi_f, lo_f))
+    _, min_lo = _min_u64_masked(hhi, hlo, kvalid[:, None, :], axis=2)
 
     mask = kmer_mask_py(k)
     if k == 16:
@@ -176,40 +166,20 @@ def minhash_signatures(bases: jnp.ndarray, lengths: jnp.ndarray, k: int,
 def signatures_3n_pair(bases: jnp.ndarray, lengths: jnp.ndarray, k: int,
                        hash_ids: jnp.ndarray, mirror: bool = False
                        ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Both 3N signature spaces of a read batch in one pass.
+    """Both 3N signature spaces of a read batch.
 
     mirror=False (directional): returns ([N, 2F] = [sig_CT(x) |
     sig_GA(RC(x))], valid) — the engine's read-side probe layout.
     mirror=True (undirectional PBAT): [sig_CT(RC(x)) | sig_GA(x)].
 
-    Uses the identity GA(RC(x)) == RC(CT(x)) (complement maps C->T onto
-    G->A), so both spaces come from ONE collapse's forward and
-    reverse-complement k-mers — no revcomp gather; on TPU a single fused
-    Pallas pass (minhash_pallas.sigs_from_bases mode='both').
-    Bit-identical to two minhash_signatures calls over the collapsed /
-    revcomp'd inputs (tests/test_minhash_pallas.py).
+    Two minhash_signatures calls over the collapsed read and the
+    collapsed reverse complement (tests/test_minhash_pallas.py).
     """
-    from . import encode, minhash_pallas
-    n, maxlen = bases.shape
-    seq_valid = lengths >= k
+    from . import encode
     if mirror:
         coll = jnp.where(bases == 2, jnp.int8(0), bases)     # GA(x)
     else:
         coll = jnp.where(bases == 1, jnp.int8(3), bases)     # CT(x)
-    if minhash_pallas.can_use(k, n, maxlen - k + 1):
-        s = minhash_pallas.sigs_from_bases(coll, lengths, k, hash_ids,
-                                           mode="both")
-        f = hash_ids.shape[0]
-        mask = kmer_mask_py(k)
-        if k < 16:
-            s = s & jnp.uint32(mask)
-        s = jnp.where(seq_valid[:, None], s, jnp.uint32(SIG_SENTINEL))
-        fwd_s, rc_s = s[:, :f], s[:, f:]
-        # directional probe order: [CT(x), GA(RC(x))]; mirrored (PBAT):
-        # [CT(RC(x)), GA(x)] — the rc-kmer half is CT(RC(x)) == RC(GA(x))
-        sigs = (jnp.concatenate([rc_s, fwd_s], axis=1) if mirror
-                else jnp.concatenate([fwd_s, rc_s], axis=1))
-        return sigs, seq_valid
     rc = encode.revcomp_bases(bases, lengths)
     if mirror:
         other = jnp.where(rc == 1, jnp.int8(3), rc)          # CT(RC(x))
@@ -230,8 +200,7 @@ def minhash_signatures_chunked(bases: jnp.ndarray, lengths: jnp.ndarray,
                                ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Signatures for a large padded batch via lax.map over fixed chunks.
 
-    One compiled program, one output buffer — important on transports where
-    each distinct device->host transfer shape pays a setup cost.  The row
+    One compiled program, one output buffer.  The row
     count must be a multiple of `chunk` (pad with zero-length rows).
     """
     n, maxlen = bases.shape

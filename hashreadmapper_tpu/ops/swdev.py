@@ -24,9 +24,8 @@ O(segLen * lanes) scalar steps:
                 else -inf; the first (kk, j) in lex order with any lane
                 true is found with one argmax.
 
-Layout: all state is kept pairs-minor ([segs, lanes, P]) so the batch
-dimension rides the TPU's 128-wide vector lanes; the 16 SSE lanes live on
-sublanes.  Everything is int32 arithmetic (the uint8 bias/saturation
+Layout: all state is kept pairs-minor ([segs, lanes, P]), so the batch is
+the contiguous axis and the 16 SSE lanes are an outer axis.  Everything is int32 arithmetic (the uint8 bias/saturation
 semantics are emulated exactly); pairs whose score saturates
 (score1 + bias >= 255) are flagged and the caller re-runs them through the
 host word-mode path, exactly as ssw_align does (align/sw.py:379-388).
@@ -57,96 +56,6 @@ _BIG = np.int32(0x3FFFFFFF)  # np, not jnp: a module-level jnp
 # platform choice (dryrun_multichip must pick CPU before first init)
 
 
-# Striped-pass backend choice: decided ONCE per process by an on-device
-# smoke check (decide_sw_backend), never re-read after the first jit trace
-# — the routing is baked into cached executables, so a mid-run flip would
-# be silently ignored for already-traced shapes (ADVICE r4).
-_SW_PALLAS = {"decided": False, "ok": False, "fallback": 0}
-
-
-def sw_pallas_state() -> dict:
-    """Snapshot of the backend decision (for stats and tests)."""
-    return dict(_SW_PALLAS)
-
-
-def _smoke_check_pallas():
-    """Compile AND run the Pallas pass on the current device at a tiny
-    shape; require bit-exact agreement with the XLA scan pass.  Raises on
-    any compile failure or mismatch.  This is the on-hardware gate the
-    round-4 kernel shipped without (interpret-mode tests validate
-    semantics, not Mosaic lowering — VERDICT r4 weak #3)."""
-    from .swdev_pallas import pass_batched_pallas
-    rng = np.random.default_rng(12345)
-    P, lq, n_cols = 8, 37, 48
-    rc = jnp.asarray(rng.integers(0, 4, size=(P, lq)).astype(np.int8))
-    rl = jnp.asarray(rng.integers(20, lq + 1, size=P).astype(np.int32))
-    fc = rng.integers(0, 4, size=(P, n_cols)).astype(np.int8)
-    fl = jnp.asarray(rng.integers(24, n_cols + 1, size=P).astype(np.int32))
-    term = jnp.asarray(np.full(P, SAT, np.int32))
-    read_at, pre_mask, pos, seg_len = _striped_layout(rc, rl, lq)
-    ref_t = jnp.asarray(fc).astype(jnp.int32).T[:n_cols]
-    got = pass_batched_pallas(read_at, rl, seg_len, ref_t, fl, term,
-                              0, n_cols, True)
-    want = _pass_batched(read_at, pre_mask, pos, seg_len, ref_t, fl, term,
-                         0, n_cols, True)
-    names = ("best", "end_ref", "end_read", "max_column", "overflowed")
-    for name, g, w in zip(names, got, want):
-        if not np.array_equal(np.asarray(g), np.asarray(w)):
-            raise AssertionError(f"pallas/XLA striped-pass mismatch: {name}")
-
-
-def decide_sw_backend(force: bool = False) -> bool:
-    """Decide (once per process) whether the striped pass runs the Pallas
-    kernel.  Must be called EAGERLY before the first STEP-2 jit trace
-    (CoarseMapper.__init__ and the un-jitted ssw_score entry points do).
-    Policy: HRM_SW_PALLAS=0 -> XLA; CPU backend -> XLA (interpret mode is
-    test-only); otherwise run the on-device smoke check, and on ANY
-    failure warn, record sw_kernel_fallback=1, and use the XLA scan pass
-    — a kernel that does not lower must never take the round down with it
-    (VERDICT r4 #1/#2)."""
-    if _SW_PALLAS["decided"] and not force:
-        return _SW_PALLAS["ok"]
-    _SW_PALLAS["decided"] = True
-    _SW_PALLAS["fallback"] = 0
-    import os
-    if os.environ.get("HRM_SW_PALLAS", "1") == "0":
-        _SW_PALLAS["ok"] = False
-        return False
-    try:
-        if jax.default_backend() == "cpu":
-            _SW_PALLAS["ok"] = False
-            return False
-        _smoke_check_pallas()
-        _SW_PALLAS["ok"] = True
-    except Exception as e:  # noqa: BLE001 - any failure means fallback
-        import warnings
-        warnings.warn(
-            "striped-SW Pallas kernel failed its on-device smoke check "
-            f"({type(e).__name__}: {e}); STEP-2 uses the XLA scan pass "
-            "(sw_kernel_fallback=1)")
-        _SW_PALLAS["fallback"] = 1
-        _SW_PALLAS["ok"] = False
-    return _SW_PALLAS["ok"]
-
-
-def _run_pass(read_at, pre_mask, pos, seg_len, eff_read_len, ref_t,
-              ref_len, terminate, ref_dir: int, n_cols: int,
-              want_max_column: bool):
-    """Dispatch one striped pass: Pallas on TPU (if the smoke check
-    passed), XLA scan elsewhere.  The XLA formulation streams its
-    [S,16,P] carries through HBM every column (~38 ms/2048-read batch,
-    PERF.md round-4 budget); the Pallas kernel (swdev_pallas.py) keeps
-    them in VMEM.  Bit-identical — equivalence fuzzed in
-    tests/test_swdev.py and asserted on-device by the smoke check."""
-    if decide_sw_backend():
-        from .swdev_pallas import pass_batched_pallas
-        return pass_batched_pallas(read_at, eff_read_len, seg_len, ref_t,
-                                   ref_len, terminate, ref_dir, n_cols,
-                                   want_max_column)
-    return _pass_batched(read_at, pre_mask, pos, seg_len, ref_t, ref_len,
-                         terminate, ref_dir, n_cols, want_max_column)
-
-
 def _pass_batched(read_at, pre_mask, pos, seg_len, ref_t, ref_len,
                   terminate, ref_dir: int, n_cols: int,
                   want_max_column: bool):
@@ -167,7 +76,8 @@ def _pass_batched(read_at, pre_mask, pos, seg_len, ref_t, ref_len,
     P = read_at.shape[2]
     j_col = jax.lax.broadcasted_iota(jnp.int32, (S, 1, 1), 0)
     arow = j_col < seg_len[None, None, :]                    # [S,1,P]
-    # gather-free row selections: one-hot masks (TPU gathers are slow)
+    # gather-free row selections: one-hot masks (ROADMAP D8: re-measure a
+    # plain gather)
     oh_last = (j_col == jnp.maximum(seg_len - 1, 0)[None, None, :])  # [S,1,P]
     kk2 = jax.lax.broadcasted_iota(jnp.int32, (LANES, 1), 0)
 
@@ -278,8 +188,8 @@ def _striped_select(read_t, seg_len, S: int, lq: int):
 
     seg_len has at most ceil(lq/16) distinct values, so the striped
     permutation is materialized once per value as a STATIC row gather
-    (a plain data movement) and selected per pair — per-element dynamic
-    gathers cost ~18 ns/element on this backend and dominated the pass.
+    (a plain data movement) and selected per pair, instead of a
+    per-element dynamic gather (ROADMAP D8: re-measure one).
     """
     P = read_t.shape[1]
     out = jnp.zeros((S, LANES, P), jnp.int32)
@@ -312,8 +222,8 @@ def _striped_layout_t(read_t, read_len, lq):
 
     The transposed form is the NATIVE one — every consumer below works in
     [L, P]; accepting read_t directly lets the fused STEP-2 path build its
-    pair tensors transposed at the source and skip the [P,128]->[128,P]
-    relayouts (~4 ms each per 8192-pair batch, measured round 5)."""
+    pair tensors transposed at the source and skip the [P, L] -> [L, P]
+    relayouts."""
     S = (lq + LANES - 1) // LANES
     P = read_t.shape[1]
     seg_len = (read_len + LANES - 1) // LANES
@@ -342,8 +252,8 @@ def _forward_t(read_t, read_len, ref_tt, ref_len, mask_len, n_cols: int):
     read_at, pre_mask, pos, seg_len = _striped_layout_t(read_t, read_len,
                                                         lq)
     ref_t = ref_tt[:n_cols]
-    best, end_ref, end_read, max_column, ovf = _run_pass(
-        read_at, pre_mask, pos, seg_len, read_len, ref_t, ref_len,
+    best, end_ref, end_read, max_column, ovf = _pass_batched(
+        read_at, pre_mask, pos, seg_len, ref_t, ref_len,
         jnp.full((P,), SAT, jnp.int32), 0, n_cols, True)
 
     # second-best outside the masked window (byte quirk: second range starts
@@ -394,9 +304,8 @@ def _reverse_t(read_t, ref_tt, score1, ref_end, query_end, n_cols: int):
     query_end = query_end.astype(jnp.int32)
     lq = read_t.shape[0]
     # reversed prefix: rev[t] = read[query_end - t] for t <= query_end.
-    # Static flip + per-pair row shift (rev[t] = flip[t + lq-1-qe]) —
-    # the old per-pair take_along_axis reversals cost ~18 ns/element and
-    # were most of the reverse pass's device time.
+    # Static flip + per-pair row shift (rev[t] = flip[t + lq-1-qe]) in
+    # place of a per-pair take_along_axis reversal.
     t_idx = jax.lax.broadcasted_iota(jnp.int32, (lq, 1), 0)
     qe = query_end[None, :]
     flipped = read_t.astype(jnp.int32)[::-1]                   # [LQ, P]
@@ -421,8 +330,8 @@ def _reverse_t(read_t, ref_tt, score1, ref_end, query_end, n_cols: int):
     ref_flip = ref_tt.astype(jnp.int32)[:n_cols][::-1]         # [LR, P]
     ref_rev_t = _shift_rows_up(ref_flip, n_cols - 1 - ref_end,
                                jnp.int32(4))
-    best, end_ref, end_read, _, ovf = _run_pass(
-        read_at, pre_mask, pos, seg_len, rl_rev, ref_rev_t, fl_rev,
+    best, end_ref, end_read, _, ovf = _pass_batched(
+        read_at, pre_mask, pos, seg_len, ref_rev_t, fl_rev,
         score1, 1, n_cols, False)
     return {"ref_begin": end_ref, "query_begin": query_end - end_read,
             "flag2": score1 > best, "overflowed": ovf}
@@ -472,7 +381,7 @@ def _diag_fastpath_flag(read_t, ref_tt, score1, ref_begin, ref_end,
     r = ref_end - ref_begin + 1
     # shifted_ref[a] = ref[a + delta], delta = ref_begin - query_begin in
     # [-(lq-1), n_cols-1]; barrel-shift (log2 select+roll) instead of a
-    # per-pair gather (XLA gathers cost ~18 ns/element on this backend)
+    # per-pair gather
     pad = jnp.full((lq, P), 4, jnp.int32)
     x = jnp.concatenate([pad, ref_tt.astype(jnp.int32)[:n_cols], pad],
                         axis=0)                      # index c = a + delta + lq
@@ -532,7 +441,6 @@ def ssw_score_dispatch(read_codes, read_len, ref_codes, ref_len, mask_len):
     WITHOUT synchronizing — callers dispatch every chunk first, then
     collect, so H2D/compute/D2H of successive chunks overlap (the
     reference's 2-stream pipelining, gpuminhasherconstruction.cu:89-108)."""
-    decide_sw_backend()   # eager: routing must be fixed before the trace
     n_cols = int(ref_codes.shape[1])
     return ssw_score_packed(
         jnp.asarray(read_codes), jnp.asarray(read_len),

@@ -1,11 +1,10 @@
 """64-bit unsigned integer arithmetic as pairs of uint32 JAX arrays.
 
-TPUs have no native 64-bit integer datapath; XLA emulates s64/u64 with pairs of
-32-bit words anyway, and enabling jax_enable_x64 globally changes default dtypes
-everywhere.  We instead represent a u64 tensor explicitly as an (hi, lo) pair of
-uint32 tensors and implement exactly the operations the MurmurHash3 finalizer
-needs (reference: include/hpc_helpers/include/hashers.cuh:128-137).  Everything
-here vectorizes onto the 8x128 VPU lanes.
+Enabling jax_enable_x64 globally changes default dtypes everywhere, so a u64
+tensor is represented explicitly as an (hi, lo) pair of uint32 tensors, with
+exactly the operations the MurmurHash3 finalizer needs (reference:
+include/hpc_helpers/include/hashers.cuh:128-137).  Whether native 64-bit
+integers under scoped x64 are faster on the GPU is open (ROADMAP D7).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ only, no MPI/NCCL).  This framework's multi-host story:
 
   * `initialize()` wraps jax.distributed.initialize — after it, the global
     device set spans all hosts and meshes can be built over `jax.devices()`
-    with ICI inside a host and DCN across hosts.
+    with NVLink inside a host and the network across hosts.
   * data-parallel read layout: reads are partitioned per PROCESS (each host
     ingests its own shard of the input files, `process_read_slice`); coarse
     results are per-read and disjoint across hosts, so no merge is needed.
@@ -87,11 +87,6 @@ def merge_region_results(mesh, local_keys: Sequence, local_payloads: Sequence):
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-
     n = local_keys[0].shape[0]
     p = local_payloads[0].shape[1]
     r = mesh.devices.size
@@ -129,12 +124,9 @@ def merge_region_results(mesh, local_keys: Sequence, local_payloads: Sequence):
         return (jnp.stack([b0, b1, b2], axis=1),
                 jax.lax.pmax(masked, "region"))
 
-    kwargs = dict(mesh=mesh, in_specs=(P("region"), P("region")),
-                  out_specs=(P(), P()))
-    try:
-        fn = shard_map(reduce_fn, check_vma=False, **kwargs)
-    except TypeError:
-        fn = shard_map(reduce_fn, check_rep=False, **kwargs)
+    fn = jax.shard_map(reduce_fn, mesh=mesh,
+                       in_specs=(P("region"), P("region")),
+                       out_specs=(P(), P()), check_vma=False)
     out_key, out_pay = jax.jit(fn)(gkey, gpay)
     # replicated outputs: every process can read its addressable shard
     kc = np.asarray(out_key.addressable_data(0)).astype(np.int64)

@@ -12,7 +12,11 @@ lexicographic minimum over (hamming, global window ordinal) — an
 associative, deterministic reduce, so results are independent of the
 region count (SURVEY.md §5 "multi-host merge semantics" requirement) and
 EQUAL to the single-device engine's (margins keep every window's
-sequence, signature, and extension clamping bit-identical).
+sequence, signature, and extension clamping bit-identical) — while no
+cap binds.  The probe and vote caps apply per region: under a binding cap
+(probe_overflow / vote_overflow > 0) a region keeps the first `cap`
+values of ITS share of a key, so a region run keeps more candidates than
+one device and may map more reads (ROADMAP D12).
 
 This realizes the reference's genome-streaming axis (SURVEY.md §2.3 last
 row) as a partition instead of a stream; communication is one small
@@ -152,11 +156,11 @@ class RegionShardedMapper:
                 c, opts.kmer_length, opts.window_size)
 
         self.mappers: List[CoarseMapper] = []
-        # the cuckoo direct-probe tables cost ~2.5x the CSR index in HBM;
-        # with >2 co-resident regions per device they would crowd out the
-        # read pool (12-region GRCh38 would exceed a v5e's 16 GB), so those
-        # configurations keep the binary-search probe (~6% slower at 250
-        # Mbp)
+        # the cuckoo direct-probe tables cost ~2.5x the CSR index in device
+        # memory; with >2 co-resident regions per device they would crowd
+        # out the read pool, so those configurations keep the bit-identical
+        # binary-search probe (a fixed rule; ROADMAP D11 derives it from
+        # the device's bytes_limit)
         if mesh is not None:
             # region x mesh composition: every region's tables shard over
             # the SAME (data x table) mesh (so a pod can hold GRCh38:
@@ -259,16 +263,10 @@ class RegionShardedMapper:
             out.global_window_id[better] = (
                 gwin_global[better] & 0xFFFFFFFF).astype(np.uint32)
         out.global_window_id64 = out_gwin64
-        # silent-fallback surfacing (engine._fallback_stats): direct probe
-        # counts only when EVERY region has it; any region's vote fallback
-        # flags the run
-        fbs = [m._fallback_stats() for m in self.mappers]
+        # probe surfacing (engine._fallback_stats): the direct probe
+        # counts only when EVERY region has it
         out.stats["cuckoo_direct_probe"] = min(
-            f["cuckoo_direct_probe"] for f in fbs)
-        out.stats["vote_kernel_fallback"] = max(
-            f["vote_kernel_fallback"] for f in fbs)
-        out.stats["sw_kernel_fallback"] = max(
-            f.get("sw_kernel_fallback", 0) for f in fbs)
+            m._fallback_stats()["cuckoo_direct_probe"] for m in self.mappers)
         if with_scores:
             # per-read selection of the winning region's fused STEP-2
             # score/traceback rows (pair columns 2i, 2i+1 of read i)

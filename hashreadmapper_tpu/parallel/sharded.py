@@ -1,12 +1,12 @@
 """Multi-device coarse mapping: sharded index + data-parallel read streaming.
 
-TPU-native re-expression of the reference's multi-GPU layer:
+JAX re-expression of the reference's multi-GPU layer:
 
   * hash-table sharding over the "table" mesh axis mirrors
     MultiGpuMinhasher::Layout::EvenShare round-robining tables over GPUs
     (reference: include/gpu/multigpuminhasher.cuh:277-303); the reference's
     cudaMemcpyPeerAsync broadcast + partial-result merge (:650-755) becomes
-    an implicit replicated query batch + jax.lax.all_gather over ICI;
+    an implicit replicated query batch + jax.lax.all_gather (NCCL);
   * read-batch sharding over the "data" mesh axis mirrors the read-storage
     row sharding of MultiGpu2dArray (multigpuarray.cuh:1315-1345);
   * the per-read best-hit merge stays device-local because each read's
@@ -50,15 +50,8 @@ def make_mesh(data: int, table: int,
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-    kwargs = dict(mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-    try:
-        return shard_map(fn, check_vma=False, **kwargs)
-    except TypeError:
-        return shard_map(fn, check_rep=False, **kwargs)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 class ShardedCoarseMapper:
@@ -134,7 +127,7 @@ class ShardedCoarseMapper:
             jnp.zeros((f,), dtype=jnp.int32), table_spec)
         self._drops_set = False
         self._compile_steps()
-        self._warned_vote_fallback = False
+        self._warned_fallback = False
 
     # region-composition hooks (region_sharded.region_key_payload reads
     # the segment geometry off the mapper)
@@ -339,7 +332,7 @@ class ShardedCoarseMapper:
                     td = jnp.int32(0)
                 # merge per-table partials: the reference P2P-gathers
                 # per-GPU counts/values (multigpuminhasher.cuh:740-907);
-                # here one all_gather over ICI re-assembles [F, N, C]
+                # here one all_gather re-assembles [F, N, C]
                 return (jax.lax.all_gather(cl, "table", axis=0, tiled=True),
                         jax.lax.all_gather(nl, "table", axis=0, tiled=True),
                         td)
@@ -357,8 +350,8 @@ class ShardedCoarseMapper:
                 counts = jnp.concatenate([counts, counts_u], axis=0)
                 tail_drops = tail_drops + td_u
 
-            ids, hit_cnt, num_kept = mi.vote_candidates_fnc_auto(
-                cand, opts.min_table_hits, kcap)
+            ids, hit_cnt, num_kept = mi.vote_candidates(
+                cand.transpose(1, 0, 2), opts.min_table_hits, kcap)
 
             from ..pipeline.engine import coarse_pairs_best
             (out_ori32, out_ham, out_shift, out_chrom, out_pos, best_gwin,
@@ -510,22 +503,13 @@ class ShardedCoarseMapper:
 
     def _fallback_stats(self) -> dict:
         import sys
-        und = 2 if self.opts.undirectional else 1
-        pallas_ok = mi.vote_uses_pallas(
-            self.n_tables * und, self.opts.batchsize, self.opts.probe_cap)
-        from ..ops import swdev as _swdev
-        stats = {"cuckoo_direct_probe": int(self._use_cuckoo),
-                 "vote_kernel_fallback": int(not pallas_ok),
-                 "sw_kernel_fallback": _swdev.sw_pallas_state()["fallback"]}
-        if not self._warned_vote_fallback:
-            self._warned_vote_fallback = True
+        stats = {"cuckoo_direct_probe": int(self._use_cuckoo)}
+        if not self._warned_fallback:
+            self._warned_fallback = True
             if self.cuckoo_fallback_reason:
                 print(f"note: cuckoo direct probe disabled "
                       f"({self.cuckoo_fallback_reason}); binary-search "
                       f"probe in use", file=sys.stderr)
-            if not pallas_ok and jax.default_backend() == "tpu":
-                print("note: vote merge width exceeds the Pallas kernel "
-                      "cap; XLA fallback in use", file=sys.stderr)
         return stats
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,

@@ -277,13 +277,9 @@ def run_cssw(genome: Genome, genome_rc: Genome,
     out = None
     if (getattr(opts, "step2_device", False) and reads.num_reads > 0
             and native.available()):
-        try:
-            out = _run_cssw_device(genome, genome_rc, orientation, position,
-                                   chromosome_id, reads, opts, bs_strand,
-                                   pre_scores=pre_scores,
-                                   as_records=as_records)
-        except ImportError:
-            pass  # no jax -> host path
+        out = _run_cssw_device(genome, genome_rc, orientation, position,
+                               chromosome_id, reads, opts, bs_strand,
+                               pre_scores=pre_scores, as_records=as_records)
     if out is None:
         out = _run_cssw_host(genome, genome_rc, orientation, position,
                              chromosome_id, reads, opts, bs_strand)
@@ -577,8 +573,7 @@ def _run_cssw_device(genome: Genome, genome_rc: Genome,
         """Enqueue banded-traceback chunks for pairs [s, e) that need the
         DP (uncertified, non-fallback, non-degenerate).  Fixed-size padded
         chunks keep the jit shape count bounded; pairs are ordered by
-        initial band width so multi-pass pairs cluster into the same
-        Pallas blocks (done blocks skip later doubling passes)."""
+        initial band width (the order has no effect on the results)."""
         if not use_tb:
             return None
         from ..ops import bandtb

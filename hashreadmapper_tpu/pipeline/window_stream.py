@@ -186,8 +186,8 @@ class WindowStreamMapper:
                 max_values_per_key=(0 if opts.three_n_seeding
                                     else opts.max_results_per_map),
                 fnc_layout=True, **cuckoo_kw)
-        ids, _cnt, num_kept = mi.vote_candidates_fnc_auto(
-            cand, opts.min_table_hits, kcap)
+        ids, _cnt, num_kept = mi.vote_candidates(
+            cand.transpose(1, 0, 2), opts.min_table_hits, kcap)
 
         rid = ids.reshape(-1)                          # [B*K] read ids
         pair_valid = rid != jnp.uint32(0xFFFFFFFF)
@@ -196,9 +196,8 @@ class WindowStreamMapper:
         # pair compaction (engine.coarse_pairs_best's budget machinery in
         # the window orientation: budget = windows * shd_pairs budget) —
         # at real densities most of the [B, K] candidate grid is padding,
-        # and SHD with its plane gathers was ~3.9x the inverted engine's
-        # cost at the same shape (PERF.md round-4).  Bit-identical while
-        # pair_drops stays 0.
+        # so SHD and its plane gathers run on the compacted pairs only.
+        # Bit-identical while pair_drops stays 0.
         kb = opts.shd_pairs_per_read_budget
         compact = 0 < kb < kcap
         if compact:
@@ -281,8 +280,8 @@ class WindowStreamMapper:
         self._genome_concat = jnp.asarray(np.concatenate(
             [genome.bases[c].astype(np.int8)
              for c in range(genome.num_chromosomes)]))
-        from ..ops import shd_pallas
-        self._genome_hi, self._genome_lo = shd_pallas.pack_genome_planes(
+        from ..ops import bitplanes
+        self._genome_hi, self._genome_lo = bitplanes.pack_genome_planes(
             self._genome_concat)
         chrom_offsets = np.zeros(genome.num_chromosomes, dtype=np.int64)
         t = 0

@@ -3,7 +3,7 @@
 // The device probe (hashreadmapper_tpu/index/minhash_index.py) replaces its
 // bucketed binary search with a 2-choice cuckoo lookup: each key lives at
 // h1(key) or h2(key), so a query costs two key gathers + one payload gather
-// instead of log2(bucket) search passes.  This is the TPU-shaped analog of
+// instead of log2(bucket) search passes.  This is the static-shape analog of
 // the reference's warpcore open-addressing tables
 // (reference: include/gpu/gpuhashtable.cuh:726-833) — the reference probes
 // with cooperative groups at query time; here the table is built once on

@@ -1,4 +1,4 @@
-"""E2E equivalence: TPU read-streaming engine == reference-orientation oracle.
+"""E2E equivalence: read-streaming engine == reference-orientation oracle.
 
 The engine indexes genome windows and streams reads; the oracle indexes reads
 and streams genome windows exactly like the reference driver.  With caps large
@@ -9,6 +9,7 @@ chromosome, window position.
 import random
 
 import numpy as np
+import pytest
 
 from hashreadmapper_tpu.config import ProgramOptions
 from hashreadmapper_tpu.cpu import oracle, reference_pipeline
@@ -128,3 +129,18 @@ def test_engine_short_reads_unmapped():
     want, got = _run_both(chroms, reads, opts)
     assert want[0].orientation == oracle.NONE
     assert got.orientation[0] == oracle.NONE
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_engine_matches_oracle_three_n(seed):
+    """3N seeding on bisulfite reads (C->T in read space, half of them
+    reverse-complemented) == the reference-orientation 3N oracle."""
+    rng = random.Random(seed)
+    chroms = _make_genome(rng, [400, 260])
+    reads = [[3 if (b == 1 and rng.random() < 0.9) else b for b in r]
+             for r in _make_reads(rng, chroms, 60, (14, 30))]
+    opts = _opts(three_n_seeding=True, max_hamming_percent=0.15)
+    want, got = _run_both(chroms, reads, opts)
+    n_mapped = sum(1 for w in want if w.orientation != oracle.NONE)
+    assert n_mapped >= 20, "test should exercise mapped reads"
+    _assert_equal(want, got, reads)

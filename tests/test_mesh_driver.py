@@ -74,7 +74,7 @@ def test_mesh_cli_e2e_matches_single(tmp_path, mesh):
 
 def test_mesh_cli_e2e_undirectional_matches_single(tmp_path):
     """PBAT reads through the mesh: bs_strand must reach STEP 2's mirrored
-    rescoring (the round-2 gap: the mesh dropped bs_strand)."""
+    rescoring (a past gap: the mesh dropped bs_strand)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
     fa, fq = make_bs_dataset(tmp_path, pbat_half=True, seed=11)

@@ -1,78 +1,76 @@
-"""Pallas murmur-minhash kernel vs the XLA formulation (interpret mode)."""
+"""Device minhash signatures (ops/minhash.py) vs the pure-Python oracle
+murmur-minhash (cpu/oracle.py), bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hashreadmapper_tpu.ops import minhash
-from hashreadmapper_tpu.ops import minhash_pallas as mp
-from hashreadmapper_tpu.ops import u64
+from hashreadmapper_tpu.cpu import oracle
+from hashreadmapper_tpu.ops import encode, minhash
+
+
+def _oracle_sigs(bases, lengths, k, hash_ids, canonical):
+    """[N, F] uint32 oracle signatures, SIG_SENTINEL rows for len < k."""
+    out = np.full((len(lengths), len(hash_ids)), minhash.SIG_SENTINEL,
+                  np.uint32)
+    for r, ln in enumerate(lengths):
+        sig = oracle.minhash_signature([int(b) for b in bases[r, :ln]], k,
+                                       [int(h) for h in hash_ids],
+                                       canonical=canonical)
+        if sig is not None:
+            out[r] = sig
+    return out
+
+
+def _batch(rng, n, maxlen, k):
+    bases = rng.integers(0, 4, size=(n, maxlen)).astype(np.int8)
+    lengths = rng.integers(0, maxlen + 1, size=n).astype(np.int32)
+    lengths[:8] = [0, k - 1, k, maxlen, 1, k + 1, maxlen - 1, k]
+    return bases, lengths
 
 
 @pytest.mark.parametrize("k,f", [(16, 16), (16, 3), (11, 16), (1, 2)])
 def test_sig_min_murmur_matches_xla(k, f):
+    """Forward-k-mer signatures (3N seeding) at every table count."""
     rng = np.random.default_rng(42 + k + f)
-    n, maxlen = 256, 100
-    bases = rng.integers(0, 4, size=(n, maxlen)).astype(np.int8)
-    lengths = rng.integers(0, maxlen + 1, size=n).astype(np.int32)
-    lengths[:8] = [0, k - 1, k, maxlen, 1, k + 1, maxlen - 1, k]
+    bases, lengths = _batch(rng, 24, 100, k)
     hash_ids = np.arange(f, dtype=np.uint32)
-
-    sig_ref, valid_ref = minhash.minhash_signatures(
+    sig, valid = minhash.minhash_signatures(
         jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
         canonical=False)
-
-    (_, clo), _ = minhash.forward_kmers(jnp.asarray(bases),
-                                        jnp.asarray(lengths), k)
-    got = mp.sig_min_murmur(clo, jnp.asarray(lengths), k,
-                            jnp.asarray(hash_ids), interpret=True)
-    mask = np.uint32(minhash.kmer_mask_py(k))
-    want = np.asarray(sig_ref)
-    have = np.where(np.asarray(valid_ref)[:, None],
-                    np.asarray(got) & mask if k < 16 else np.asarray(got),
-                    np.uint32(minhash.SIG_SENTINEL))
-    np.testing.assert_array_equal(have, want)
+    np.testing.assert_array_equal(
+        np.asarray(sig), _oracle_sigs(bases, lengths, k, hash_ids, False))
+    np.testing.assert_array_equal(np.asarray(valid), lengths >= k)
 
 
 @pytest.mark.parametrize("mode", ["fwd", "canon", "both"])
 def test_sigs_from_bases_matches_xla(mode):
+    """Forward, canonical, and both 3N spaces (signatures_3n_pair)."""
     rng = np.random.default_rng(5)
-    k, f, n, maxlen = 16, 6, 256, 100
-    bases = rng.integers(0, 4, size=(n, maxlen)).astype(np.int8)
-    lengths = rng.integers(0, maxlen + 1, size=n).astype(np.int32)
-    lengths[:4] = [0, k - 1, k, maxlen]
+    k, f = 16, 6
+    bases, lengths = _batch(rng, 24, 100, k)
     hash_ids = np.arange(f, dtype=np.uint32)
     bd, ld, hd = (jnp.asarray(bases), jnp.asarray(lengths),
                   jnp.asarray(hash_ids))
-
-    got = np.asarray(mp.sigs_from_bases(bd, ld, k, hd, mode=mode,
-                                        interpret=True))
-    from hashreadmapper_tpu.ops import encode
-    if mode == "canon":
-        want, _ = minhash.minhash_signatures(bd, ld, k, hd, canonical=True)
-        ref = np.asarray(want)
-        have = np.where(lengths[:, None] >= k, got,
-                        np.uint32(minhash.SIG_SENTINEL))
-        np.testing.assert_array_equal(have, ref)
-    elif mode == "fwd":
-        want, _ = minhash.minhash_signatures(bd, ld, k, hd, canonical=False)
-        have = np.where(lengths[:, None] >= k, got,
-                        np.uint32(minhash.SIG_SENTINEL))
-        np.testing.assert_array_equal(have, np.asarray(want))
+    if mode == "both":
+        got, _ = minhash.signatures_3n_pair(bd, ld, k, hd)
+        ct = np.where(bases == 1, 3, bases)
+        ga_rc = np.asarray(encode.revcomp_bases(bd, ld))
+        ga_rc = np.where(ga_rc == 2, 0, ga_rc)
+        want = np.concatenate(
+            [_oracle_sigs(ct, lengths, k, hash_ids, False),
+             _oracle_sigs(ga_rc, lengths, k, hash_ids, False)], axis=1)
     else:
-        w1, _ = minhash.minhash_signatures(bd, ld, k, hd, canonical=False)
-        rc = encode.revcomp_bases(bd, ld)
-        w2, _ = minhash.minhash_signatures(rc, ld, k, hd, canonical=False)
-        have = np.where(lengths[:, None] >= k, got,
-                        np.uint32(minhash.SIG_SENTINEL))
-        np.testing.assert_array_equal(have[:, :f], np.asarray(w1))
-        np.testing.assert_array_equal(have[:, f:], np.asarray(w2))
+        canonical = mode == "canon"
+        got, _ = minhash.minhash_signatures(bd, ld, k, hd,
+                                            canonical=canonical)
+        want = _oracle_sigs(bases, lengths, k, hash_ids, canonical)
+    np.testing.assert_array_equal(np.asarray(got), want)
 
 
 @pytest.mark.parametrize("mirror", [False, True])
 def test_signatures_3n_pair_fallback_is_engine_formulation(mirror):
-    """The XLA fallback of signatures_3n_pair must equal the engine's
-    original two-call formulation (collapse + revcomp + collapse)."""
-    from hashreadmapper_tpu.ops import encode
+    """signatures_3n_pair must equal the engine's two-call formulation
+    (collapse + revcomp + collapse)."""
     rng = np.random.default_rng(11)
     k, f, n, maxlen = 16, 16, 128, 128
     bases = rng.integers(0, 4, size=(n, maxlen)).astype(np.int8)
@@ -95,20 +93,18 @@ def test_signatures_3n_pair_fallback_is_engine_formulation(mirror):
 
 
 def test_sig_min_murmur_vs_py_oracle():
-    """Direct single-row check against the pure-python murmur."""
+    """Direct check of the reduction: min over positions of the Python
+    murmur64 of each forward k-mer + hash id, low 32 bits (k = 16)."""
     rng = np.random.default_rng(7)
     k, f, n, maxlen = 16, 4, 128, 40
     bases = rng.integers(0, 4, size=(n, maxlen)).astype(np.int8)
     lengths = np.full(n, maxlen, np.int32)
     hash_ids = np.arange(f, dtype=np.uint32)
-    (_, clo), _ = minhash.forward_kmers(jnp.asarray(bases),
-                                        jnp.asarray(lengths), k)
-    got = np.asarray(mp.sig_min_murmur(clo, jnp.asarray(lengths), k,
-                                       jnp.asarray(hash_ids),
-                                       interpret=True))
-    clo_np = np.asarray(clo)
+    got = np.asarray(minhash.minhash_signatures(
+        jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
+        canonical=False)[0])
     for r in range(0, n, 37):
+        kmers = oracle.forward_kmers([int(b) for b in bases[r]], k)
         for fi in range(f):
-            h = min(u64.murmur64_py(int(clo_np[r, p]) + fi)
-                    for p in range(maxlen - k + 1))
+            h = min(oracle.murmur64(km + fi) for km in kmers)
             assert got[r, fi] == np.uint32(h & 0xFFFFFFFF)

@@ -1,12 +1,17 @@
-"""Pallas bit-plane SHD == one-hot scan SHD (bit-identical)."""
+"""Bit-plane SHD (ops/shd.py packed path) == one-hot scan SHD, bit for bit."""
 
 import random
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from hashreadmapper_tpu.ops import shd
-from hashreadmapper_tpu.ops.shd_pallas import pack_bitplanes
+from hashreadmapper_tpu.ops.bitplanes import pack_bitplanes, \
+    pack_genome_planes
+
+MODES = {"parity": (False, False), "3n": (True, False),
+         "3n_undirectional": (True, True)}
 
 
 def test_pack_bitplanes():
@@ -26,113 +31,133 @@ def test_pack_bitplanes():
             assert (mask[0, w] >> b) & 1 == 0, pos
 
 
-def test_bitplane_matches_onehot():
-    rng = random.Random(0)
-    window_size = 48
-    max_read_len = 32
-    genome = [rng.randrange(4) for _ in range(800)]
-    chrom_len = len(genome)
-
+def _pairs(seed, n, genome_len, max_read_len, window_size, min_len=6,
+           near=False):
+    """Planted (some reverse-complemented, a few substitutions) and random
+    reads against random window positions; near=True puts each planted
+    read's window within half a window of its source."""
+    rng = random.Random(seed)
+    genome = [rng.randrange(4) for _ in range(genome_len)]
     pairs = []
-    for _ in range(150):
-        pos = rng.randrange(0, chrom_len - 4)
-        rl = rng.randint(6, max_read_len)
+    for _ in range(n):
+        pos = rng.randrange(0, genome_len - 4)
+        rl = rng.randint(min_len, max_read_len)
         if rng.random() < 0.6:
-            src = rng.randrange(0, chrom_len - rl)
+            src = rng.randrange(0, genome_len - rl)
             read = genome[src:src + rl]
             if rng.random() < 0.5:
                 read = [3 - b for b in reversed(read)]
             for _ in range(rng.randint(0, 2)):
                 read[rng.randrange(rl)] = rng.randrange(4)
+            if near:
+                pos = max(0, src - rng.randrange(window_size // 2))
         else:
             read = [rng.randrange(4) for _ in range(rl)]
         pairs.append((pos, read))
-
     p = len(pairs)
     pos_arr = jnp.array([x[0] for x in pairs], dtype=jnp.int32)
     rl_arr = jnp.array([len(x[1]) for x in pairs], dtype=jnp.int32)
     reads = np.zeros((p, max_read_len), dtype=np.int8)
     for i, (_, r) in enumerate(pairs):
         reads[i, :len(r)] = r
-
     loc = shd.extended_window_location(
-        pos_arr, jnp.full((p,), chrom_len, dtype=jnp.int32), rl_arr,
+        pos_arr, jnp.full((p,), genome_len, dtype=jnp.int32), rl_arr,
         window_size)
     params = shd.ShdParams(window_size=window_size,
                            max_ext_len=window_size + max_read_len,
                            max_read_len=max_read_len,
                            max_hamming_percent=0.3)
-    args = (jnp.array(genome, dtype=jnp.int8), loc.start, loc.length,
-            loc.left, jnp.array(reads), rl_arr,
-            jnp.ones((p,), dtype=bool), params)
-    want = shd.shd_pairs(*args)
-    got = shd.shd_pairs_bitplane(*args)
-    np.testing.assert_array_equal(np.asarray(got.orientation),
-                                  np.asarray(want.orientation))
-    np.testing.assert_array_equal(np.asarray(got.hamming),
-                                  np.asarray(want.hamming))
-    np.testing.assert_array_equal(np.asarray(got.shift),
-                                  np.asarray(want.shift))
+    return jnp.array(genome, dtype=jnp.int8), loc, jnp.array(reads), \
+        rl_arr, params
+
+
+def _packed(genome, loc, reads, rl, valid, params, three_n, und):
+    g_hi, g_lo = pack_genome_planes(genome)
+    planes = shd.pack_read_planes(reads, rl, three_n, und)
+    return shd.shd_pairs_packed_planes(
+        g_hi, g_lo, loc.start, loc.length, loc.left, *planes, rl, valid,
+        params, three_n=three_n, undirectional=und)
+
+
+def _assert_same(got, want):
+    for field in ("orientation", "hamming", "shift"):
+        np.testing.assert_array_equal(np.asarray(getattr(got, field)),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+
+
+def test_bitplane_matches_onehot():
+    genome, loc, reads, rl, params = _pairs(0, 150, 800, 32, 48)
+    valid = jnp.ones((rl.shape[0],), dtype=bool)
+    want = shd.shd_pairs(genome, loc.start, loc.length, loc.left, reads, rl,
+                         valid, params)
+    _assert_same(_packed(genome, loc, reads, rl, valid, params, False,
+                         False), want)
 
 
 def test_packed_genome_matches_unpacked():
-    import jax.numpy as jnp
-    from hashreadmapper_tpu.ops import shd_pallas
-
-    rng = random.Random(5)
-    window_size = 48
-    max_read_len = 32
-    genome = [rng.randrange(4) for _ in range(1000)]
-    chrom_len = len(genome)
-
-    pairs = []
-    for _ in range(200):
-        pos = rng.randrange(0, chrom_len - 4)
-        rl = rng.randint(6, max_read_len)
-        if rng.random() < 0.6:
-            src = rng.randrange(0, chrom_len - rl)
-            read = genome[src:src + rl]
-            if rng.random() < 0.5:
-                read = [3 - b for b in reversed(read)]
-        else:
-            read = [rng.randrange(4) for _ in range(rl)]
-        pairs.append((pos, read))
-
-    p = len(pairs)
-    pos_arr = jnp.array([x[0] for x in pairs], dtype=jnp.int32)
-    rl_arr = jnp.array([len(x[1]) for x in pairs], dtype=jnp.int32)
-    reads = np.zeros((p, max_read_len), dtype=np.int8)
-    for i, (_, r) in enumerate(pairs):
-        reads[i, :len(r)] = r
-    valid = np.ones(p, dtype=bool)
+    genome, loc, reads, rl, params = _pairs(5, 200, 1000, 32, 48)
+    valid = np.ones(rl.shape[0], dtype=bool)
     valid[3] = False
-
-    loc = shd.extended_window_location(
-        pos_arr, jnp.full((p,), chrom_len, dtype=jnp.int32), rl_arr,
-        window_size)
-    params = shd.ShdParams(window_size=window_size,
-                           max_ext_len=window_size + max_read_len,
-                           max_read_len=max_read_len,
-                           max_hamming_percent=0.3)
-    gconcat = jnp.array(genome, dtype=jnp.int8)
-    g_hi, g_lo = shd_pallas.pack_genome_planes(gconcat)
-
+    valid = jnp.asarray(valid)
     for three_n in (False, True):
-        if three_n:
-            want = shd.shd_pairs_bitplane_3n(
-                gconcat, loc.start, loc.length, loc.left,
-                jnp.array(reads), rl_arr, jnp.array(valid), params)
-        else:
-            want = shd.shd_pairs_bitplane(
-                gconcat, loc.start, loc.length, loc.left,
-                jnp.array(reads), rl_arr, jnp.array(valid), params)
-        got = shd.shd_pairs_packed(
-            g_hi, g_lo, jnp.int32(chrom_len), loc.start, loc.length,
-            loc.left, jnp.array(reads), rl_arr, jnp.array(valid), params,
-            three_n=three_n)
-        np.testing.assert_array_equal(np.asarray(got.orientation),
-                                      np.asarray(want.orientation))
-        np.testing.assert_array_equal(np.asarray(got.hamming),
-                                      np.asarray(want.hamming))
-        np.testing.assert_array_equal(np.asarray(got.shift),
-                                      np.asarray(want.shift))
+        want = shd.shd_pairs(genome, loc.start, loc.length, loc.left, reads,
+                             rl, valid, params, three_n=three_n)
+        _assert_same(_packed(genome, loc, reads, rl, valid, params, three_n,
+                             False), want)
+
+
+@pytest.mark.parametrize("read_len", [50, 100, 150, 160])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_shd_xla_matches_onehot(mode, read_len):
+    """The bit-plane running argmin (shd_best_xla, the CPU path and the
+    kernel's reference) == the one-hot scan at production widths."""
+    three_n, und = MODES[mode]
+    genome, loc, reads, rl, params = _pairs(
+        read_len, 160, 4000, read_len, 128, min_len=read_len // 2,
+        near=True)
+    valid = jnp.ones((rl.shape[0],), dtype=bool)
+    want = shd.shd_pairs(genome, loc.start, loc.length, loc.left, reads, rl,
+                         valid, params, three_n=three_n, undirectional=und)
+    got = _packed(genome, loc, reads, rl, valid, params, three_n, und)
+    _assert_same(got, want)
+    assert (np.asarray(got.orientation) != shd.NONE).sum() > 0
+
+
+def _random_planes(seed, p, wr, n_shifts=160):
+    """Random plane words and shift ranges, including empty ranges."""
+    rng = np.random.default_rng(seed)
+    wa = (n_shifts - 1) // 32 + wr + 2
+
+    def words(*shape):
+        return jnp.asarray(rng.integers(-2**31, 2**31, size=shape,
+                                        dtype=np.int64).astype(np.int32))
+
+    lo = rng.integers(0, 32, p)
+    hi = lo + rng.integers(-5, n_shifts - 31, p)
+    bounds = jnp.asarray(np.stack([lo, hi], 1).astype(np.int32))
+    return (words(p, 2, wa), words(p, 2, wa), words(p, 2, wr),
+            words(p, 2, wr), words(p, wr), bounds, n_shifts, wa, wr)
+
+
+@pytest.mark.parametrize("p,wr", [(128, 4), (200, 5), (1, 4), (300, 2)])
+def test_shd_triton_interpret_matches_xla(p, wr):
+    """The Triton kernel in interpret mode == the plain formulation; P
+    not a multiple of the block exercises the wrapper's padding."""
+    from hashreadmapper_tpu.ops import shd_triton
+    args = _random_planes(p + wr, p, wr)
+    want = shd.shd_best_xla(*args)
+    got = shd_triton.shd_best(*args, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wr", [4, 5])
+def test_shd_triton_on_card_matches_xla(gpu, wr):
+    """The compiled kernel on the card == the plain formulation, at the
+    bench batch (4096 reads x 4 pairs)."""
+    from hashreadmapper_tpu.ops import shd_triton
+    args = _random_planes(wr, 4096 * 4, wr)
+    want = shd.shd_best_xla(*args)
+    got = shd_triton.shd_best(*args)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -1,14 +1,14 @@
-"""Pallas fused vote == XLA vote_candidates, bit-identical.
-
-Runs in interpret mode on the CPU test backend (conftest forces cpu).
-"""
+"""Device vote (minhash_index.vote_candidates) vs the reference of
+keepDistinctByFrequency (cpu/oracle.vote_rows; reference:
+minhashqueryfilter.cuh:123-279): distinct ids seen in >= min_table_hits
+tables, ascending, capped."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from hashreadmapper_tpu.cpu import oracle
 from hashreadmapper_tpu.index import minhash_index as mi
-from hashreadmapper_tpu.ops import vote_pallas
 
 SENT = np.uint32(0xFFFFFFFF)
 
@@ -29,6 +29,13 @@ def make_cand(rng, n, f, c, density=0.2, id_range=5000):
     return out
 
 
+def _check(cand, min_hits, cap):
+    got = mi.vote_candidates(jnp.asarray(cand), min_hits, cap)
+    for g, w in zip(got, oracle.vote_rows(cand, min_hits, cap)):
+        np.testing.assert_array_equal(np.asarray(g), w)
+    return [np.asarray(g) for g in got]
+
+
 @pytest.mark.parametrize("n,f,c,min_hits,cap", [
     (128, 16, 8, 4, 8),
     (256, 32, 16, 4, 8),    # 3N shape: 2F tables
@@ -37,32 +44,22 @@ def make_cand(rng, n, f, c, density=0.2, id_range=5000):
 ])
 def test_vote_pallas_matches_xla(n, f, c, min_hits, cap):
     rng = np.random.default_rng(n + f + c)
-    cand = make_cand(rng, n, f, c)
-    ids0, cnt0, nk0 = mi.vote_candidates(jnp.asarray(cand), min_hits, cap)
-    ids1, cnt1, nk1 = vote_pallas.vote_candidates_fnc(
-        jnp.asarray(cand).transpose(1, 0, 2), min_hits, cap,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(ids0), np.asarray(ids1))
-    np.testing.assert_array_equal(np.asarray(cnt0), np.asarray(cnt1))
-    np.testing.assert_array_equal(np.asarray(nk0), np.asarray(nk1))
+    _check(make_cand(rng, n, f, c), min_hits, cap)
 
 
 def test_vote_pallas_empty_and_full():
     n, f, c, cap = 128, 8, 8, 8
     # all-SENTINEL input -> nothing kept
-    cand = np.full((n, f, c), SENT, dtype=np.uint32)
-    ids, cnt, nk = vote_pallas.vote_candidates_fnc(
-        jnp.asarray(cand).transpose(1, 0, 2), 4, cap, interpret=True)
-    assert (np.asarray(ids) == SENT).all()
-    assert (np.asarray(nk) == 0).all()
+    ids, cnt, nk = _check(np.full((n, f, c), SENT, dtype=np.uint32), 4, cap)
+    assert (ids == SENT).all()
+    assert (nk == 0).all()
     # one id present in every table of every read -> kept with count f
     cand = np.full((n, f, c), SENT, dtype=np.uint32)
     cand[:, :, 0] = 7
-    ids, cnt, nk = vote_pallas.vote_candidates_fnc(
-        jnp.asarray(cand).transpose(1, 0, 2), 4, cap, interpret=True)
-    assert (np.asarray(ids)[:, 0] == 7).all()
-    assert (np.asarray(cnt)[:, 0] == f).all()
-    assert (np.asarray(nk) == 1).all()
+    ids, cnt, nk = _check(cand, 4, cap)
+    assert (ids[:, 0] == 7).all()
+    assert (cnt[:, 0] == f).all()
+    assert (nk == 1).all()
 
 
 def test_vote_pallas_overflow_num_kept():
@@ -72,8 +69,7 @@ def test_vote_pallas_overflow_num_kept():
     # 5 distinct ids, each in every table
     for j in range(5):
         cand[:, :, j] = 10 + j
-    ids, cnt, nk = vote_pallas.vote_candidates_fnc(
-        jnp.asarray(cand).transpose(1, 0, 2), 2, cap, interpret=True)
-    assert (np.asarray(nk) == 5).all()
-    assert (np.asarray(ids)[:, 0] == 10).all()
-    assert (np.asarray(ids)[:, 1] == 11).all()
+    ids, cnt, nk = _check(cand, 2, cap)
+    assert (nk == 5).all()
+    assert (ids[:, 0] == 10).all()
+    assert (ids[:, 1] == 11).all()

@@ -116,7 +116,7 @@ def test_window_stream_three_n_matches_engine():
 def test_window_stream_budgets_match_unbudgeted():
     """Pair compaction + two-tier/head-compacted probe in the window
     orientation are bit-identical while their overflow counters stay 0
-    (round-5; mirrors the engine's budget equivalence guarantees)."""
+    (mirrors the engine's budget equivalence guarantees)."""
     chroms, bases, lens = _dataset()
     base = dict(
         kmer_length=8, num_hash_functions=8, window_size=32,
