@@ -9,11 +9,10 @@ Phases (every comparison is exact; everything compared is integer):
              native/ by `make`; the tests marked `gpu`.
   2 kernels  each device stage against its plain reference at real widths:
              minhash signatures (cpu/oracle), CSR build + probe (a numpy
-             index from the same signatures), vote (cpu/oracle), SHD (Triton
-             kernel vs the plain formulation vs the one-hot scan vs
-             cpu/oracle), the striped-SW score pass (native host SSW) and
-             the banded traceback (native host banded DP); SHD kernel vs
-             XLA timings.
+             index from the same signatures), vote (cpu/oracle), SHD (the
+             bit-plane path vs the one-hot scan vs cpu/oracle), the
+             striped-SW score pass (native host SSW) and the banded
+             traceback (native host banded DP).
   3 small    a seeded 256 kbp genome and 2,048 3N reads through
              run_pipeline: coarse results equal cpu/reference_pipeline,
              and step2_device on/off write byte-identical SAM and VCF.
@@ -22,11 +21,11 @@ Phases (every comparison is exact; everything compared is integer):
              FASTA and gzipped FASTQ, mapped by the README command through
              the CLI's main: one SAM row per read, >= 80% mapped, >= 99% of
              mapped reads at their planted start, no budget overflow.
-  5          (--four-cards only) phase 4's generator and reads, on a 32 Mbp
-             chromosome whose 3N buckets fit under probe cap 256, through
+  5          (--four-cards only) phase 4's data and command through
              run_pipeline on one card, on a 2x2 (data x table) mesh and in
-             4 regions over 4 cards: no cap binds, and the three SAMs must
-             be byte-identical.
+             4 regions over 4 cards, where the probe and vote caps bind:
+             the three SAMs must be byte-identical and the overflow
+             counters equal.
 
 The last line of stdout is {"ok": true, "device": {...}}.  Any failure —
 no GPU, a phase that fails, a comparison that differs — exits non-zero
@@ -52,7 +51,6 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.join(REPO, "benchmarks"))
 
 CHR1_LEN = 248_956_422        # GRCh38 chr1
 
@@ -63,7 +61,6 @@ class Sizes:
     small_reads: int = 2048
     main_genome: int = CHR1_LEN
     main_reads: int = 262_144
-    four_genome: int = 32_000_000   # largest 3N genome under probe cap 256
     read_len: int = 100
     batch: int = 4096          # device batch of the kernel comparisons
     probe_genome: int = 2_000_000
@@ -245,25 +242,17 @@ def check_probe_and_vote(sz, rng):
         f"cpu/oracle; {int((np.asarray(got[2]) > 0).sum())} reads kept ids")
 
 
-def check_shd(sz, rng, card):
-    """Triton kernel vs plain formulation at the bench batch (asserted
-    inside shd_bench.isolation, which also times both); the packed path vs
-    the one-hot scan; a sample vs the pure-Python oracle."""
+SHD_MODES = {"parity": (False, False), "3n": (True, False),
+             "3n_undirectional": (True, True)}
+
+
+def check_shd(sz, rng):
+    """The packed bit-plane path vs the one-hot scan in every mode; a
+    sample vs the pure-Python oracle."""
     import jax.numpy as jnp
 
-    import shd_bench
     from hashreadmapper_tpu.cpu import oracle
-    from hashreadmapper_tpu.ops import bitplanes, shd, shd_triton
-
-    impls = {"xla": shd.shd_best_xla, "triton": shd_triton.shd_best}
-    production = shd.shd_best
-    for lr in (128, 160):
-        r = shd_bench.isolation(impls, lr, "3n", 5, rng)
-        log(f"[2] SHD kernel == plain formulation, 3N lr{lr}, 16,384 "
-            f"pairs: triton {np.median(r['triton']['ms']) * 1e3:.1f} us, "
-            f"xla {np.median(r['xla']['ms']) * 1e3:.1f} us per batch "
-            f"(median of 10; {card})")
-    shd_bench.use(production)
+    from hashreadmapper_tpu.ops import bitplanes, shd
 
     window, lq, p = 128, 160, 4096
     g = rng.integers(0, 4, 1 << 20).astype(np.int8)
@@ -286,7 +275,7 @@ def check_shd(sz, rng, card):
     gd = jnp.asarray(g)
     g_hi, g_lo = bitplanes.pack_genome_planes(gd)
     valid = jnp.ones((p,), bool)
-    for mode, (three_n, und) in shd_bench.MODES.items():
+    for mode, (three_n, und) in SHD_MODES.items():
         want = shd.shd_pairs(gd, loc.start, loc.length, loc.left,
                              jnp.asarray(reads), jnp.asarray(rl), valid,
                              params, three_n=three_n, undirectional=und)
@@ -580,15 +569,10 @@ def phase_main(sz, d, card, compiles):
 
 
 def phase_four_cards(sz, d, card):
-    """One card vs a 2x2 mesh vs 4 regions on 4 cards: identical SAMs.
-
-    The regions are identical to one card only while no cap binds: each
-    region caps its own share of a key's windows, so under a binding probe
-    or vote cap a region run keeps more candidates than one card does.  At
-    chr1 length the 3N buckets exceed any probe cap the direct probe takes,
-    so this phase cuts the genome to the largest size whose buckets fit
-    under probe cap 256 (phase 4's generator and reads otherwise), and
-    asserts that every overflow counter is 0 in all three runs."""
+    """Phase 4's data and command on one card, on a 2x2 mesh and in 4
+    regions over 4 cards: byte-identical SAMs and equal overflow counters.
+    At chr1 length the probe and vote caps bind, so the regions must apply
+    them over the whole genome (parallel/region_sharded.py) to agree."""
     import jax
 
     from hashreadmapper_tpu.cli import options_from_args
@@ -598,29 +582,30 @@ def phase_four_cards(sz, d, card):
 
     devs = jax.devices()
     assert len(devs) >= 4, f"--four-cards needs 4 devices, have {len(devs)}"
-    fa, fq, _ = make_dataset(d, sz.four_genome, sz.main_reads, sz.read_len,
+    fa, fq, _ = make_dataset(d, sz.main_genome, sz.main_reads, sz.read_len,
                              seed=1)
-    log(f"[5] data: {sz.four_genome:,} bp chromosome, {sz.main_reads:,} "
-        f"reads; README command with --probeCap 256")
+    log(f"[5] data: {sz.main_genome:,} bp chromosome, {sz.main_reads:,} "
+        f"reads; the README command")
     genome = Genome.from_fasta(fa)
     reads = ReadStorage.from_files([fq])
-    sams = {}
+    sams, caps = {}, {}
     for label, extra in (("1 card", []), ("2x2 mesh", ["--mesh", "2", "2"]),
                          ("4 regions", ["--regions", "4"])):
         opts = options_from_args([
             "--genomefile", fa, "-i", fq, "-o",
             os.path.join(d, label.replace(" ", "_")), "-k", "16", "-m",
-            "16", "--windowSize", "128", "--minTableHits", "4", "--threeN",
-            "--probeCap", "256"] + extra)
+            "16", "--windowSize", "128", "--minTableHits", "4", "--threeN"]
+            + extra)
         jax.clear_caches()      # drop the previous run's mapper
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             out = run_pipeline(opts, reads=reads, genome=genome)
         wall = time.perf_counter() - t0
         stats = out["results"].stats
-        for key in ("probe_overflow", "vote_overflow", "pair_budget_overflow",
-                    "probe_tail_overflow", "probe_head_overflow"):
+        for key in ("pair_budget_overflow", "probe_tail_overflow",
+                    "probe_head_overflow"):
             assert stats[key] == 0, (label, key, stats)
+        caps[label] = (stats["probe_overflow"], stats["vote_overflow"])
         m = out["mapper"]
         if label == "4 regions":
             placed = {next(iter(r.index.keys.devices())) for r in m.mappers}
@@ -634,10 +619,15 @@ def phase_four_cards(sz, d, card):
         sams[label] = read_bytes(out["sam_path"])
         n_map = int((out["results"].orientation != 3).sum())
         log(f"[5] {label}: {where}; mapped {n_map}/{reads.num_reads}; "
-            f"wall {wall:.1f} s ({card})")
+            f"probe_overflow {caps[label][0]}, vote_overflow "
+            f"{caps[label][1]}; wall {wall:.1f} s ({card})")
+        del out, m
     base = sams["1 card"]
     for label, s in sams.items():
         assert s == base, f"SAM of {label} differs from the one-card SAM"
+        assert caps[label] == caps["1 card"], \
+            f"overflow counters of {label} differ from one card: {caps}"
+    assert caps["1 card"][0] > 0, "the probe cap should bind at chr1 length"
     log(f"[5] the three SAMs are byte-identical ({len(base):,} bytes)")
 
 
@@ -677,7 +667,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             check_signatures(sz, rng)
             check_probe_and_vote(sz, rng)
-            check_shd(sz, rng, card)
+            check_shd(sz, rng)
             check_step2(sz, rng)
             log(f"[2] kernels vs reference: {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()

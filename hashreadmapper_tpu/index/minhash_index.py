@@ -60,6 +60,12 @@ class CsrIndex:
     # (None = cuckoo built / never attempted); surfaced in run stats so a
     # silent production perf regression is visible (PERF.md gap #5)
     cuckoo_fallback_reason: Optional[str] = None
+    # region mode only (parallel/region_sharded.py): the keys whose first
+    # value in genome order lies in this region's index and whose values
+    # over the whole genome exceed the probe cap, with that genome-wide
+    # count ([F, D] uint32 SENTINEL-padded, [F, D] int32, [F] int32)
+    overflow_keys: Optional[Tuple[jnp.ndarray, jnp.ndarray,
+                                  jnp.ndarray]] = None
 
     def build_buckets(self) -> None:
         # size the radix directory so buckets average ~2 keys: the probe's
@@ -109,7 +115,8 @@ class CsrIndex:
     def memory_bytes(self) -> int:
         total = (self.keys.nbytes + self.offsets.nbytes + self.values.nbytes
                  + self.num_keys.nbytes)
-        for a in (self.bucket_start, self.cuckoo_keys, self.cuckoo_payload):
+        for a in (self.bucket_start, self.cuckoo_keys, self.cuckoo_payload,
+                  *(self.overflow_keys or ())):
             if a is not None:
                 total += a.nbytes
         return total
@@ -321,6 +328,17 @@ def _row_searchsorted(keys_row: jnp.ndarray, queries: jnp.ndarray
     return jnp.searchsorted(keys_row, queries, side="left")
 
 
+def _sorted_member(keys: jnp.ndarray, num: jnp.ndarray, queries: jnp.ndarray):
+    """Per-table membership of [F, N] queries in the ascending [F, D]
+    rows `keys` (first num[f] entries valid).  Returns (hit [F, N] bool,
+    column [F, N] int32 clipped into the row)."""
+    idx = jax.vmap(_row_searchsorted)(keys, queries)
+    idx_c = jnp.minimum(idx, keys.shape[1] - 1)
+    hit = ((jnp.take_along_axis(keys, idx_c, axis=1) == queries)
+           & (idx < num[:, None]))
+    return hit, idx_c
+
+
 BUCKET_BITS = 16   # default directory width (CsrIndex.build_buckets adapts)
 
 
@@ -382,7 +400,9 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
                  head_budget: int = 0,
                  cuckoo: Optional[Tuple[jnp.ndarray, jnp.ndarray]] = None,
                  cuckoo_bits: int = 0,
-                 cuckoo_seeds: Tuple[int, int] = (0, 0)):
+                 cuckoo_seeds: Tuple[int, int] = (0, 0),
+                 overflow_keys: Optional[Tuple[jnp.ndarray, jnp.ndarray,
+                                               jnp.ndarray]] = None):
     """Capped CSR lookup of [N, F] query signatures.
 
     Returns:
@@ -408,6 +428,10 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
     while head_drops is 0.  Probes compacted out past head_budget lose all
     their values, so callers must assert/report head_drops like the other
     budget counters.
+
+    overflow_keys (CsrIndex.overflow_keys, region mode) replaces the
+    counts of the listed keys by their genome-wide counts, so counts >
+    probe_cap counts each over-cap probe once over all regions.
     """
     n, f = sigs.shape
     sigs_t = sigs.T  # [F, N]
@@ -437,12 +461,7 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
         off0 = jnp.where(found, (pay >> 10).astype(jnp.int32), 0)
         cnt = (pay & jnp.uint32(1023)).astype(jnp.int32)
         if dropped_keys is not None:
-            dkeys, dnum = dropped_keys
-            didx = jax.vmap(_row_searchsorted)(dkeys, sigs_t)
-            didx_c = jnp.minimum(didx, dkeys.shape[1] - 1)
-            dhit = (jnp.take_along_axis(dkeys, didx_c, axis=1) == sigs_t
-                    ) & (didx < dnum[:, None])
-            found = found & ~dhit
+            found = found & ~_sorted_member(*dropped_keys, sigs_t)[0]
         counts = jnp.where(found, cnt, 0)                        # [F, N]
     else:
         if bucket_start is not None:
@@ -455,12 +474,7 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
         found = (found_key == sigs_t) & (idx < index_num_keys[:, None])
         found = found & sig_valid[None, :]
         if dropped_keys is not None:
-            dkeys, dnum = dropped_keys
-            didx = jax.vmap(_row_searchsorted)(dkeys, sigs_t)
-            didx_c = jnp.minimum(didx, dkeys.shape[1] - 1)
-            dhit = (jnp.take_along_axis(dkeys, didx_c, axis=1) == sigs_t
-                    ) & (didx < dnum[:, None])
-            found = found & ~dhit
+            found = found & ~_sorted_member(*dropped_keys, sigs_t)[0]
 
         off0 = jnp.take_along_axis(index_offsets, idx_c, axis=1)
         off1 = jnp.take_along_axis(index_offsets, idx_c + 1, axis=1)
@@ -549,6 +563,12 @@ def probe_tables(index_keys: jnp.ndarray, index_offsets: jnp.ndarray,
         tail_drops = jnp.maximum(n_big - tail_budget, 0)
     else:
         cand = head
+
+    if overflow_keys is not None:
+        okeys, ocount, onum = overflow_keys
+        ohit, ocol = _sorted_member(okeys, onum, sigs_t)
+        counts = jnp.where(ohit & found,
+                           jnp.take_along_axis(ocount, ocol, axis=1), counts)
 
     if tail_budget > 0:
         if fnc_layout:

@@ -12,11 +12,18 @@ lexicographic minimum over (hamming, global window ordinal) — an
 associative, deterministic reduce, so results are independent of the
 region count (SURVEY.md §5 "multi-host merge semantics" requirement) and
 EQUAL to the single-device engine's (margins keep every window's
-sequence, signature, and extension clamping bit-identical) — while no
-cap binds.  The probe and vote caps apply per region: under a binding cap
-(probe_overflow / vote_overflow > 0) a region keeps the first `cap`
-values of ITS share of a key, so a region run keeps more candidates than
-one device and may map more reads (ROADMAP D12).
+sequence, signature, and extension clamping bit-identical).  The probe
+and vote caps hold over the whole genome, as on one device:
+  * probe cap: after the build, every region's index keeps only the
+    values of a key that are among its first `probe_cap` in genome order
+    (apply_global_probe_cap), and the region holding a key's first value
+    reports the key's genome-wide count for the overflow stat;
+  * vote cap: each batch runs twice per region — first the vote alone,
+    then, with each read's genome-wide first `candidates_per_read_cap`
+    voted windows known on the host, the full step limited to those
+    (global_vote_limits).
+The region x mesh composition (mesh=...) still applies both caps per
+region (ROADMAP D12).
 
 This realizes the reference's genome-streaming axis (SURVEY.md §2.3 last
 row) as a partition instead of a stream; communication is one small
@@ -92,6 +99,147 @@ def plan_regions(genome: Genome, opts: ProgramOptions, n_regions: int,
         regions = regions_for_base_cap(
             genome, opts, SINGLE_MAPPER_BASE_CAP, margin, n_min=n_regions)
     return regions
+
+
+def local_to_global(mapper: CoarseMapper, chrom_gwin_base: np.ndarray,
+                    local: np.ndarray) -> np.ndarray:
+    """Global window ordinals (int64) of a region mapper's local window
+    ordinals; monotone, so a region's ascending ids stay ascending."""
+    base = mapper.seg_local_base
+    seg_gwin0 = np.array(
+        [chrom_gwin_base[s.chrom_id] + s.win_start for s in mapper.segments],
+        dtype=np.int64)
+    seg = np.searchsorted(base, local, side="right") - 1
+    return seg_gwin0[seg] + (local - base[seg])
+
+
+def apply_global_probe_cap(mappers: List[CoarseMapper],
+                           chrom_gwin_base: np.ndarray,
+                           probe_cap: int) -> None:
+    """Cut every region's index to the values one index over the whole
+    genome would gather.
+
+    One index gathers the first `probe_cap` values of a key, ascending in
+    window order.  Per table, the keys whose values over all regions
+    exceed the cap are found; each region keeps the values of such a key
+    that rank below the cap genome-wide (a prefix of its own ascending
+    row, possibly empty), and the region holding the key's first value
+    lists it with its genome-wide count in CsrIndex.overflow_keys.  Keys
+    stay in place, so the probe directory is unchanged; the direct-probe
+    table is rebuilt over the new offsets."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from ..index import minhash_index as mi
+
+    host = [dict(keys=np.asarray(m.index.keys),
+                 offsets=np.asarray(m.index.offsets).copy(),
+                 values=np.asarray(m.index.values).copy(),
+                 num_keys=np.asarray(m.index.num_keys)) for m in mappers]
+    n_tab = host[0]["keys"].shape[0]
+    owned = [[(np.zeros(0, np.uint32), np.zeros(0, np.int32))] * n_tab
+             for _ in mappers]
+    changed = False
+    for t in range(n_tab):
+        keys = [h["keys"][t, :h["num_keys"][t]] for h in host]
+        counts = [np.diff(h["offsets"][t, :h["num_keys"][t] + 1])
+                  for h in host]
+        uk, inv = np.unique(np.concatenate(keys), return_inverse=True)
+        total = np.bincount(inv, weights=np.concatenate(counts),
+                            minlength=len(uk)).astype(np.int64)
+        heavy = uk[total > probe_cap]
+        if not len(heavy):
+            continue
+        changed = True
+        # every value of a heavy key as (key, global ordinal, region, slot)
+        parts = []
+        for r, (m, h) in enumerate(zip(mappers, host)):
+            j = np.nonzero(np.isin(keys[r], heavy))[0]
+            c = counts[r][j]
+            rows = np.repeat(np.arange(len(j)), c)
+            at = (np.repeat(h["offsets"][t, j].astype(np.int64), c)
+                  + np.arange(c.sum()) - np.repeat(np.cumsum(c) - c, c))
+            parts.append((keys[r][j][rows],
+                          local_to_global(m, chrom_gwin_base,
+                                          h["values"][t, at].astype(np.int64)),
+                          np.full(len(rows), r), j[rows]))
+        key, gord, reg, slot = (np.concatenate(x) for x in zip(*parts))
+        order = np.lexsort((gord, key))
+        key, reg, slot = key[order], reg[order], slot[order]
+        first = np.r_[True, key[1:] != key[:-1]]
+        rank = np.arange(len(key)) - np.maximum.accumulate(
+            np.where(first, np.arange(len(key)), 0))
+        keep = rank < probe_cap
+        for r, h in enumerate(host):
+            nk = h["num_keys"][t]
+            heavy_slot = np.zeros(nk, bool)
+            heavy_slot[slot[reg == r]] = True
+            kept = np.bincount(slot[keep & (reg == r)], minlength=nk)
+            new_cnt = np.where(heavy_slot, kept, counts[r])
+            old_off = h["offsets"][t, :nk].astype(np.int64)
+            new_off = np.zeros(nk + 1, np.int64)
+            np.cumsum(new_cnt, out=new_off[1:])
+            at = (np.repeat(old_off, new_cnt) + np.arange(new_off[-1])
+                  - np.repeat(new_off[:-1], new_cnt))
+            row = h["values"][t, at]
+            h["values"][t] = mi.SENTINEL
+            h["values"][t, :len(row)] = row
+            h["offsets"][t, :nk + 1] = new_off
+            h["offsets"][t, nk + 1:] = new_off[-1]
+            mine = first & (reg == r)
+            okeys = key[mine]
+            owned[r][t] = (okeys, total[np.searchsorted(uk, okeys)].astype(
+                np.int32))
+    if not changed:
+        return
+    for m, h, own in zip(mappers, host, owned):
+        idx = m.index
+        d = max(1, max(len(k) for k, _ in own))
+        okeys = np.full((n_tab, d), mi.SENTINEL, np.uint32)
+        ocount = np.zeros((n_tab, d), np.int32)
+        for t, (k, c) in enumerate(own):
+            okeys[t, :len(k)] = k
+            ocount[t, :len(c)] = c
+        with jax.default_device(next(iter(idx.keys.devices()))):
+            m.index = dataclasses.replace(
+                idx, offsets=jnp.asarray(h["offsets"]),
+                values=jnp.asarray(h["values"]),
+                cuckoo_keys=None, cuckoo_payload=None,
+                overflow_keys=(jnp.asarray(okeys), jnp.asarray(ocount),
+                               jnp.asarray(np.array([len(k) for k, _ in own],
+                                                    np.int32))))
+            if idx.cuckoo_keys is not None:
+                assert m.index.build_cuckoo(), m.index.cuckoo_fallback_reason
+
+
+def global_vote_limits(mappers: List[CoarseMapper],
+                       chrom_gwin_base: np.ndarray, votes, n: int,
+                       kcap: int):
+    """Per-region candidate limits that apply the vote cap genome-wide.
+
+    votes: per region (ids [n_pad, kcap] ascending local ids, SENTINEL-
+    padded; num_kept [n_pad]) from the votes-only step.  One device keeps
+    a read's first `kcap` voted windows in window order; those are the
+    `kcap` smallest global ordinals among the regions' first `kcap` each.
+    Returns (limits: per region [n_pad] int32, the number of each read's
+    ids to keep; vote_overflow: reads with more than kcap voted windows
+    over all regions)."""
+    big = np.int64(2**62)
+    glob = []
+    for m, (ids, _) in zip(mappers, votes):
+        ids = np.asarray(ids)[:n].astype(np.int64)
+        real = ids != np.int64(SENTINEL)
+        glob.append(np.where(
+            real, local_to_global(m, chrom_gwin_base, np.where(real, ids, 0)),
+            big))
+    kth = np.partition(np.concatenate(glob, axis=1), kcap - 1,
+                       axis=1)[:, kcap - 1]
+    n_pad = np.asarray(votes[0][0]).shape[0]
+    limits = [np.pad((g <= kth[:, None]).sum(axis=1), (0, n_pad - n)
+                     ).astype(np.int32) for g in glob]
+    kept = sum(np.asarray(k)[:n].astype(np.int64) for _, k in votes)
+    return limits, int((kept > kcap).sum())
 
 
 def region_key_payload(mapper: CoarseMapper, packed: np.ndarray,
@@ -182,6 +330,9 @@ class RegionShardedMapper:
                     self.mappers.append(CoarseMapper(
                         genome, opts, segments=segs,
                         build_direct_probe=direct_probe))
+            if self.n_regions > 1:
+                apply_global_probe_cap(self.mappers, self.chrom_gwin_base,
+                                       opts.probe_cap)
 
     # every region engine supports the fused STEP-2 score+traceback pass
     # (segment-aware _ensure_genome_s2); the merge below re-selects the
@@ -209,25 +360,39 @@ class RegionShardedMapper:
         # expose the full-width ordinal alongside the uint32 field
         out_gwin64 = np.full(n, -1, dtype=np.int64)
 
+        staged = []
+        for mapper in self.mappers:
+            mapper.ensure_empty_drops()
+            staged.append(mapper.stage_reads_device(read_bases,
+                                                    read_lengths))
+        # the genome-wide vote cap: every region's vote first (enqueued
+        # on all devices before the host waits), then each read's limits
+        limits = [{}] * self.n_regions
+        vote_overflow = None
+        if self.mesh is None and self.n_regions > 1:
+            votes = [m._map_reads_device(*st, opts.batchsize,
+                                         votes_only=True)
+                     for m, st in zip(self.mappers, staged)]
+            lim, vote_overflow = global_vote_limits(
+                self.mappers, self.chrom_gwin_base, votes, n,
+                opts.candidates_per_read_cap)
+            limits = [{"all_limits": x} for x in lim]
+
         # phase 1: ENQUEUE every region's device work without any host
         # sync — async dispatch lets each region's device queue execute
         # concurrently (replaces the serial per-region loop; reference
         # analog: per-GPU private streams, multigpuminhasher.cuh:641-738)
         pending = []
-        for mapper in self.mappers:
-            mapper.ensure_empty_drops()
-            all_bases, all_lens, all_valid, n_pad = \
-                mapper.stage_reads_device(read_bases, read_lengths)
+        for mapper, st, kw in zip(self.mappers, staged, limits):
             if with_scores:
                 packed_dev, ovf_dev, sc_dev, to_dev, ts_dev = \
-                    mapper._map_reads_device_scored(
-                        all_bases, all_lens, all_valid, n_pad,
-                        opts.batchsize)
+                    mapper._map_reads_device_scored(*st, opts.batchsize,
+                                                    **kw)
                 pending.append((packed_dev, ovf_dev, mapper,
                                 (sc_dev, to_dev, ts_dev)))
             else:
                 packed_dev, ovf_dev, _ = mapper._map_reads_device(
-                    all_bases, all_lens, all_valid, n_pad, opts.batchsize)
+                    *st, opts.batchsize, **kw)
                 pending.append((packed_dev, ovf_dev, mapper, None))
 
         # phase 2: fetch per-region results (device work already done or
@@ -263,6 +428,8 @@ class RegionShardedMapper:
             out.global_window_id[better] = (
                 gwin_global[better] & 0xFFFFFFFF).astype(np.uint32)
         out.global_window_id64 = out_gwin64
+        if vote_overflow is not None:
+            out.stats["vote_overflow"] = vote_overflow
         # probe surfacing (engine._fallback_stats): the direct probe
         # counts only when EVERY region has it
         out.stats["cuckoo_direct_probe"] = min(

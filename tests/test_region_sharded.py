@@ -199,3 +199,72 @@ def test_window_partition_three_n():
     for f in ("hamming", "shift", "position", "chromosome_id"):
         np.testing.assert_array_equal(
             getattr(sharded, f)[m], getattr(single, f)[m], err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# binding caps: the probe and vote caps hold over the whole genome
+# ---------------------------------------------------------------------------
+
+def _repeat_dataset(seed, three_n):
+    """Chromosomes built from a few shared units, so keys carry many
+    windows (the probe cap binds) and reads vote for many windows (the
+    vote cap binds)."""
+    rng = random.Random(seed)
+    units = ["".join(rng.choice("ACGT") for _ in range(40)) for _ in range(3)]
+    chroms = []
+    for n_units in (9, 6, 8, 5):
+        parts = []
+        for _ in range(n_units):
+            u = list(rng.choice(units))
+            u[rng.randrange(40)] = rng.choice("ACGT")
+            parts.append("".join(u) + "".join(
+                rng.choice("ACGT") for _ in range(rng.randint(0, 12))))
+        chroms.append("".join(parts))
+    reads = []
+    for _ in range(64):
+        rl = rng.randint(20, 36)
+        c = rng.randrange(len(chroms))
+        s = rng.randrange(len(chroms[c]) - rl)
+        b = oracle.encode_bases(chroms[c][s:s + rl])
+        if rng.random() < 0.5:
+            b = oracle.revcomp_bases(b)
+        if three_n:
+            b = [3 if (x == 1 and rng.random() < 0.9) else x for x in b]
+        reads.append(b)
+    bases = np.zeros((len(reads), 36), dtype=np.int8)
+    lens = np.zeros(len(reads), dtype=np.int32)
+    for i, r in enumerate(reads):
+        bases[i, :len(r)] = r
+        lens[i] = len(r)
+    return Genome([f"c{i}" for i in range(len(chroms))], chroms), bases, lens
+
+
+@pytest.mark.parametrize("three_n", [False, True])
+@pytest.mark.parametrize("partition,n_regions",
+                         [("window", 3), ("window", 5), ("chromosome", 2),
+                          ("chromosome", 4)])
+def test_binding_caps_match_single(partition, n_regions, three_n):
+    """Probe cap 3 and vote cap 2 bind; the regions still equal one
+    mapper, overflow counters included.  Chromosome bins interleave the
+    regions in genome order (c0+c2 | c1+c3 with 2 regions)."""
+    genome, bases, lens = _repeat_dataset(17 + n_regions, three_n)
+    opts = _opts(min_table_hits=1, probe_cap=3, candidates_per_read_cap=2,
+                 three_n_seeding=three_n)
+
+    single = CoarseMapper(genome, opts).map_reads(
+        bases.copy(), lens.copy(), emulate_read_key_drop=False)
+    assert single.stats["probe_overflow"] > 0
+    assert single.stats["vote_overflow"] > 0
+    sharded = RegionShardedMapper(
+        genome, opts, n_regions, partition=partition).map_reads(
+        bases.copy(), lens.copy())
+
+    np.testing.assert_array_equal(sharded.orientation, single.orientation)
+    m = single.orientation != 3
+    assert m.sum() > 20
+    for f in ("hamming", "shift", "position", "chromosome_id",
+              "global_window_id"):
+        np.testing.assert_array_equal(
+            getattr(sharded, f)[m], getattr(single, f)[m], err_msg=f)
+    for key in ("probe_overflow", "vote_overflow"):
+        assert sharded.stats[key] == single.stats[key], key

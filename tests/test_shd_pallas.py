@@ -110,8 +110,8 @@ def test_packed_genome_matches_unpacked():
 @pytest.mark.parametrize("read_len", [50, 100, 150, 160])
 @pytest.mark.parametrize("mode", list(MODES))
 def test_shd_xla_matches_onehot(mode, read_len):
-    """The bit-plane running argmin (shd_best_xla, the CPU path and the
-    kernel's reference) == the one-hot scan at production widths."""
+    """The bit-plane running argmin (shd_best) == the one-hot scan at
+    production widths."""
     three_n, und = MODES[mode]
     genome, loc, reads, rl, params = _pairs(
         read_len, 160, 4000, read_len, 128, min_len=read_len // 2,
@@ -140,24 +140,44 @@ def _random_planes(seed, p, wr, n_shifts=160):
             words(p, 2, wr), words(p, wr), bounds, n_shifts, wa, wr)
 
 
+def _numpy_best(a_hi, a_lo, r_hi, r_lo, mask, bounds, n_shifts, wa, wr):
+    """Bit-by-bit reference of shd.shd_best: unpack the plane words,
+    score every shift of the range, keep the first minimum."""
+    def bits(x):
+        x = np.ascontiguousarray(np.asarray(x).astype("<u4"))
+        return np.unpackbits(x.view(np.uint8), axis=-1, bitorder="little")
+
+    a_hi, a_lo, r_hi, r_lo, m = map(bits, (a_hi, a_lo, r_hi, r_lo, mask))
+    bounds = np.asarray(bounds)
+    n_bits = 32 * wr
+    s_all = 32 * ((n_shifts + 31) // 32)
+    ham = np.stack([
+        (((a_hi[:, :, s:s + n_bits] ^ r_hi) | (a_lo[:, :, s:s + n_bits] ^ r_lo))
+         & m[:, None, :]).sum(axis=-1, dtype=np.int32)
+        for s in range(s_all)], axis=-1)                          # [P, 2, S]
+    s = np.arange(s_all)[None, None, :]
+    ok = (s >= bounds[:, :1, None]) & (s <= bounds[:, 1:, None])
+    ham = np.where(ok, ham, int(shd._BIG))
+    best = ham.min(axis=2)
+    shift = np.where(best >= shd._BIG, bounds[:, :1], ham.argmin(axis=2))
+    return np.stack([best[:, 0], shift[:, 0], best[:, 1], shift[:, 1]],
+                    axis=1).astype(np.int32)
+
+
 @pytest.mark.parametrize("p,wr", [(128, 4), (200, 5), (1, 4), (300, 2)])
-def test_shd_triton_interpret_matches_xla(p, wr):
-    """The Triton kernel in interpret mode == the plain formulation; P
-    not a multiple of the block exercises the wrapper's padding."""
-    from hashreadmapper_tpu.ops import shd_triton
+def test_shd_best_matches_numpy(p, wr):
+    """The bit-plane running argmin on random plane words and shift
+    ranges (empty ranges included) == the bit-by-bit numpy reference."""
     args = _random_planes(p + wr, p, wr)
-    want = shd.shd_best_xla(*args)
-    got = shd_triton.shd_best(*args, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(shd.shd_best(*args)),
+                                  _numpy_best(*args))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("wr", [4, 5])
-def test_shd_triton_on_card_matches_xla(gpu, wr):
-    """The compiled kernel on the card == the plain formulation, at the
-    bench batch (4096 reads x 4 pairs)."""
-    from hashreadmapper_tpu.ops import shd_triton
+def test_shd_best_on_card_matches_numpy(gpu, wr):
+    """The running argmin as compiled for the card == the numpy
+    reference, at the bench batch (4096 reads x 4 pairs)."""
     args = _random_planes(wr, 4096 * 4, wr)
-    want = shd.shd_best_xla(*args)
-    got = shd_triton.shd_best(*args)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(shd.shd_best(*args)),
+                                  _numpy_best(*args))
